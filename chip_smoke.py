@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It builds the CUDA ``thinning_rmw`` kernel from this checkout's source
-(``nvcc`` for ``sm_90a``, into ``build/``), then runs three phases; any
-failure raises and the script exits non-zero.
+It builds the port's three CUDA kernels from this checkout's sources
+(``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
+for ``sm_90a``, all started together, into ``build/``), then runs six
+phases; any failure raises and the script exits non-zero.
 
 1. Kernel: the kernel on the card against its plain PyTorch version on the
    CPU (which the CPU tests hold bitwise to the JAX reference), bitwise on
@@ -20,6 +21,41 @@ failure raises and the script exits non-zero.
    (decisions, state and sink bytes identical); two fast-mode runs on the
    card (identical state); one fast block from a shared state on the card
    and on the CPU (identical decisions, state within 1e-5 relative).
+4. Kernels of the serving path: ``decay_scan`` on the card bitwise against
+   its plain loop on the card over T x C x (with, without h0);
+   ``flash_attention`` against its plain version on the card over MHA,
+   GQA, MQA, causal, window, softcap, non-causal and ragged shapes and the
+   serving shapes at batch 1 and 2, in float32 (rtol = atol = 2e-4, the JAX
+   suite's) and bfloat16 (``|got - want| <= 2^-6 |want| + 2^-7 m``, with
+   m the largest ``|want|`` of the same query row: two bfloat16 ulps of
+   each value, plus a floor tied to the row's scale, since a window of
+   2048 keys averages random values down to a few hundredths while a
+   row with one key keeps them whole); then each kernel's, its plain
+   version's and (attention only) PyTorch's
+   ``scaled_dot_product_attention``'s times at the serving shapes.
+5. Serving: ``recurrentgemma-2b`` at full width and depth (2,894,574,080
+   parameters, bfloat16, seeded random weights on the card) serves 2
+   requests at batch 2: a 4096-token prompt (twice the window, so the
+   window mask and the ring cache's wrap both run), then 32 greedy decode
+   steps.  One warm-up request runs first (the process's first prefill
+   pays for allocator growth and cuBLAS's first calls; its time is
+   printed as ``cold_prefill_s``), so the tokens/s are the warm rates.
+   The prefill must launch ``decay_scan`` 18 times and
+   ``flash_attention`` 8 times; every logit must be finite; parameters and
+   caches must stay on the card; each step's logits must agree with a
+   teacher-forced forward over prompt + fed tokens, to a relative L2 error
+   of at most 0.1.  The two paths round in bfloat16 at other places (the
+   conv as four shifted adds against one einsum, one-token projections
+   against whole-prompt GEMMs), and the difference grows with depth; the
+   JAX reference's own bfloat16 decode and forward differ the same way.
+   A wrong position, mask or state gives an error of order 1.
+6. Card against CPU at full width: one ``rec`` and one ``attn`` block in
+   float32 at S = 2304 (> window), the card with its kernels against the
+   CPU with the plain versions, normwise (max abs difference over max
+   abs value) within 1e-4 for ``attn`` (float32 sums in another order)
+   and 1e-3 for ``rec``, whose input ``sqrt(1 - a^2)`` cancels near
+   a = 1 and amplifies the one-ulp differences of the card's and the
+   CPU's ``exp``.
 
 Earlier lines print JSON records; the line before the last is the kernel
 table, the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -45,6 +81,26 @@ N_KEYS, N_EVENTS, BATCH = 800_000, 2_000_000, 4096
 PREFIX, EXACT_BATCH = 262_144, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+ARCH = "recurrentgemma-2b"
+N_PARAMS = 2_894_574_080
+SERVE_BATCH, PROMPT, NEW_TOKENS = 2, 4096, 32
+SCAN_T, SCAN_C = (1, 7, 256, 4096), (1, 100, 2560, 5120)
+# (B, H, Kh, Sq, Skv, D, causal, window, softcap)
+ATTN_CASES = [(2, 4, 4, 64, 64, 32, True, 0, 0.0),       # MHA
+              (2, 4, 2, 64, 64, 64, True, 32, 0.0),      # GQA, window
+              (1, 8, 1, 128, 128, 64, True, 0, 20.0),    # MQA, softcap
+              (2, 4, 2, 96, 96, 64, False, 0, 0.0),      # ragged, non-causal
+              (2, 4, 2, 96, 160, 64, True, 48, 0.0),     # Sq < Skv
+              (1, 10, 1, 300, 300, 256, True, 0, 0.0),   # D 256, ragged
+              (2, 10, 1, 1000, 1000, 256, True, 256, 30.0),
+              (1, 10, 1, 4096, 4096, 256, True, 2048, 0.0),   # serving,
+              (2, 10, 1, 4096, 4096, 256, True, 2048, 0.0)]   # batch 1, 2
+F32_TOL = 2e-4                         # rtol = atol
+BF16_RTOL, BF16_FLOOR = 2.0 ** -6, 2.0 ** -7   # of |want|, of its row's max
+DECODE_REL_L2 = 0.1
+BLOCK_TOL = {"rec": 1e-3, "attn": 1e-4}
+BLOCK_S = 2304
 
 
 def check(ok: bool, what: str) -> None:
@@ -142,16 +198,24 @@ def trmw_ops(B, T, policy):
     return B * per_row
 
 
+def build_kernels():
+    """Start one nvcc per kernel source, all together."""
+    from repro_torch.kernels import _build, decay_scan, flash_attention
+    from repro_torch.kernels import thinning_rmw as trmw
+
+    kernels = (trmw.KERNEL, decay_scan.KERNEL, flash_attention.KERNEL)
+    t0 = time.perf_counter()
+    _build.build_all(kernels)
+    emit(build={"wall_s": time.perf_counter() - t0, "kernels": {
+        k.name: {"seconds": k.build_seconds,
+                 "ptxas": [ln.strip() for ln in k.build_log.splitlines()
+                           if "registers" in ln or "spill" in ln]}
+        for k in kernels}})
+
+
 def phase_kernel(device):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import thinning_rmw as trmw
-
-    t0 = time.perf_counter()
-    trmw.build()
-    ptxas = [ln.strip() for ln in trmw.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(build={"seconds": trmw.build_seconds,
-                "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
 
     worst, cases = 0.0, 0
     for B in (1, 100, 256, 4096, 65536):
@@ -324,15 +388,319 @@ def phase_parity(device, stream):
                       "step_state_max_rel_diff": rel})
 
 
+def window_pairs(Sq, Skv, causal, window):
+    """(q, k) pairs the causal and window masks leave (positions from 0)."""
+    q = np.arange(Sq)
+    hi = np.minimum(q + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bound(B, H, Kh, Sq, Skv, D, causal, window, itemsize):
+    """(bound_ms, bound_by): two products of 2 D FLOP per unmasked pair and
+    head at the bf16 tensor-core rate, against q, k, v read once and the
+    output written once."""
+    ops = 4 * D * B * H * window_pairs(Sq, Skv, causal, window)
+    nbytes = itemsize * D * (2 * B * H * Sq + 2 * B * Kh * Skv)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attention_limit(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise limit on |kernel - plain| for attention outputs."""
+    w = want.float().abs()
+    if want.dtype == torch.bfloat16:
+        return BF16_RTOL * w + BF16_FLOOR * w.amax(-1, keepdim=True)
+    return F32_TOL + F32_TOL * w
+
+
+def phase_serving_kernels(device):
+    """Phase 4: decay_scan and flash_attention against their plain
+    versions on the card, then their times at the serving shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    cases = 0
+    for T in SCAN_T:
+        for C in SCAN_C:
+            a = torch.rand(T, C, generator=gen, device=device)
+            u = torch.randn(T, C, generator=gen, device=device)
+            for h0 in (None, torch.randn(C, generator=gen, device=device)):
+                got = ds.decay_scan_cuda(a, u, h0)
+                want = ref.decay_scan_ref(a, u, h0)
+                torch.cuda.synchronize()
+                check(bitwise_equal(got, want),
+                      f"decay_scan != plain at T={T} C={C} "
+                      f"h0={h0 is not None}: max abs err "
+                      f"{max_abs_err(got, want)}")
+                cases += 1
+    emit(decay_scan_grid={"cases": cases, "bitwise_vs_plain_card": True})
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    records, failed = [], []
+    for B, H, Kh, Sq, Skv, D, causal, window, softcap in ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, Sq, D, generator=gen, device=device)
+            k = torch.randn(B, Kh, Skv, D, generator=gen, device=device)
+            v = torch.randn(B, Kh, Skv, D, generator=gen, device=device)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ratio = float(((got.float() - want.float()).abs()
+                           / attention_limit(want)).max())
+            rec = {"shape": [B, H, Kh, Sq, Skv, D], **kw,
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": max_abs_err(got.float(), want.float()),
+                   "max_abs_want": float(want.float().abs().max()),
+                   "err_over_limit": ratio}
+            records.append(rec)
+            if not (ratio <= 1.0 and bool(torch.isfinite(got).all())):
+                failed.append(rec)
+            worst[dtype] = max(worst[dtype], rec["max_abs_err"])
+            del q, k, v, got, want
+    emit(flash_attention_grid={
+        "cases": records, "limits": {
+            "float32": {"rtol": F32_TOL, "atol": F32_TOL},
+            "bfloat16": {"rtol": BF16_RTOL,
+                         "atol_of_row_max_abs_want": BF16_FLOOR}}})
+    check(not failed, f"flash_attention != plain: {failed}")
+
+    times = {"decay_scan": {}, "flash_attention": {}}
+    T = PROMPT
+    for batch in (1, SERVE_BATCH):
+        C = batch * 2560
+        a = torch.rand(T, C, generator=gen, device=device)
+        u = torch.randn(T, C, generator=gen, device=device)
+        times["decay_scan"][batch] = {
+            "shape": [T, C],
+            "ms": graph_ms(lambda: ds.decay_scan_cuda(a, u), 10, 5),
+            "plain_ms": cuda_ms(lambda: ref.decay_scan_ref(a, u), 2),
+            "bound_ms": 1e3 * 12 * T * C / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "library_ms": None}
+    for batch in (1, SERVE_BATCH):
+        B, H, Kh, S, D, W = batch, 10, 1, PROMPT, 256, 2048
+        q = torch.randn(B, H, S, D, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        k = torch.randn(B, Kh, S, D, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        v = torch.randn(B, Kh, S, D, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        pos = torch.arange(S, device=device)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < W)
+        bound, by = attention_bound(B, H, Kh, S, S, D, True, W, 2)
+        times["flash_attention"][batch] = {
+            "shape": [B, H, Kh, S, S, D], "window": W, "dtype": "bfloat16",
+            "ms": cuda_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=True, window=W), 10),
+            "plain_ms": cuda_ms(lambda: ref.attention_ref(
+                q, k, v, causal=True, window=W), 3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), 10),
+            "bound_ms": bound, "bound_by": by}
+    emit(serving_kernel_times=times)
+    return worst, times
+
+
+def on_device(tensors, device) -> bool:
+    return all(t.device == device for t in tensors)
+
+
+def phase_serve(device):
+    """Phase 5: full-width, full-depth recurrentgemma-2b serving 2
+    requests at batch 2 on the card, checked against a teacher-forced
+    forward."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone
+    from repro_torch.serving.engine import make_serve_step, sample_token
+
+    run = load_config(ARCH)
+    cfg = run.model
+    dtype = torch.bfloat16
+    plan = backbone.layer_plan(cfg)
+    n_rec, n_attn = plan.kinds.count("rec"), plan.kinds.count("attn")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = backbone.init_params(cfg, gen, dtype, device)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                            generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in params.parameters())
+    check(n_params == N_PARAMS, f"{n_params} parameters")
+    check(on_device(params.parameters(), device), "a parameter is off card")
+    prefill = make_serve_step(run, "prefill", compute_dtype=dtype,
+                              max_len=PROMPT + NEW_TOKENS)
+    decode = make_serve_step(run, "decode", compute_dtype=dtype)
+
+    with torch.inference_mode():
+        # one warm-up request: the process's first prefill also pays for
+        # the allocator's growth and cuBLAS's first calls
+        t0 = time.perf_counter()
+        logits, state = prefill(params, prompts)
+        tok = sample_token(logits, None, temperature=0.0,
+                           vocab_size=cfg.vocab_size)
+        torch.cuda.synchronize()
+        cold_prefill_s = time.perf_counter() - t0
+        decode(params, state, tok)
+        del logits, state, tok
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+
+        ds.launches = fa.launches = 0          # the main path starts here
+        t0 = time.perf_counter()
+        logits, state = prefill(params, prompts)
+        tok = sample_token(logits, None, temperature=0.0,
+                           vocab_size=cfg.vocab_size)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_logits, fed = [logits], []
+        t0 = time.perf_counter()
+        for _ in range(NEW_TOKENS):
+            fed.append(tok)
+            logits, state = decode(params, state, tok)
+            tok = sample_token(logits, None, temperature=0.0,
+                               vocab_size=cfg.vocab_size)
+            step_logits.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = {"decay_scan": ds.launches,
+                    "flash_attention": fa.launches}
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        check(launches == {"decay_scan": n_rec, "flash_attention": n_attn},
+              f"launches {launches} for one prefill of {n_rec} rec and "
+              f"{n_attn} attn layers")
+        check(all(bool(torch.isfinite(x).all()) for x in step_logits),
+              "non-finite logits")
+        caches = [x for c in state.layers for x in c]
+        check(on_device(caches, device), "a cache left the card")
+        check(on_device(params.parameters(), device),
+              "a parameter left the card")
+
+        # teacher-forced forward over prompt + fed tokens; logits only at
+        # the positions the prefill and the decode steps predicted from
+        ds.launches = fa.launches = 0
+        t0 = time.perf_counter()
+        seq = torch.cat([prompts] + fed, dim=1)
+        hidden = backbone.forward_hidden(params, cfg, seq,
+                                         compute_dtype=dtype)
+        want = backbone.logits_from_hidden(
+            params, cfg, hidden[:, PROMPT - 1:PROMPT + NEW_TOKENS])
+        torch.cuda.synchronize()
+        teacher_s = time.perf_counter() - t0
+        check((ds.launches, fa.launches) == (n_rec, n_attn),
+              f"teacher-forced forward launched {ds.launches} scans and "
+              f"{fa.launches} attentions")
+        rel, err, agree = [], [], 0
+        for i, got in enumerate(step_logits):
+            w = want[:, i]
+            rel.append(float((got - w).norm() / w.norm()))
+            err.append(float((got - w).abs().max()))
+            agree += int((got.argmax(-1) == w.argmax(-1)).sum())
+        check(max(rel) <= DECODE_REL_L2,
+              f"decode vs teacher-forced: relative L2 error {max(rel)}")
+    emit(serve={
+        "arch": ARCH, "params": n_params, "dtype": "bfloat16",
+        "batch": SERVE_BATCH, "prompt": PROMPT, "decode_steps": NEW_TOKENS,
+        "launches_per_prefill": launches,
+        "prefill_tok_per_s": SERVE_BATCH * PROMPT / prefill_s,
+        "decode_tok_per_s": SERVE_BATCH * NEW_TOKENS / decode_s,
+        "init_s": init_s, "cold_prefill_s": cold_prefill_s,
+        "prefill_s": prefill_s, "decode_s": decode_s,
+        "teacher_forced_s": teacher_s, "peak_mem_gb": peak_gb,
+        "vs_teacher_forced": {"max_rel_l2": max(rel),
+                              "max_abs_err": max(err),
+                              "max_abs_logit": float(want.abs().max()),
+                              "argmax_agree": agree / (SERVE_BATCH *
+                                                       len(step_logits)),
+                              "rel_l2_limit": DECODE_REL_L2}})
+    return launches
+
+
+def phase_blocks(device):
+    """Phase 6: one full-width rec and one attn block in float32, the card
+    with its kernels against the CPU with the plain versions."""
+    import copy
+
+    from repro_torch.configs.base import load_config
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone, common
+
+    cfg = load_config(ARCH).model
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(1, BLOCK_S, cfg.d_model, generator=gen)
+    positions = torch.arange(BLOCK_S)
+    out = {}
+    for kind, counter in (("rec", ds), ("attn", fa)):
+        p_cpu = common.Params(common.init_tree(
+            backbone.block_specs(kind, cfg), gen, torch.float32, "cpu"))
+        p_card = copy.deepcopy(p_cpu).to(device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want, wcache = backbone.apply_block(kind, p_cpu, x, cfg,
+                                                positions,
+                                                collect_cache=True)
+            cpu_s = time.perf_counter() - t0
+            before = counter.launches
+            t0 = time.perf_counter()
+            got, gcache = backbone.apply_block(
+                kind, p_card, x.to(device), cfg, positions.to(device),
+                collect_cache=True)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+        check(counter.launches == before + 1,
+              f"{kind} block: {counter.launches - before} kernel launches")
+        worst = 0.0
+        for name, g, w in [("out", got, want)] + [
+                (f"cache{i}", g, w) for i, (g, w) in
+                enumerate(zip(gcache, wcache))]:
+            nw = max_abs_err(g, w) / float(w.abs().max())
+            check(nw <= BLOCK_TOL[kind],
+                  f"{kind} block {name}: card vs CPU normwise {nw}")
+            worst = max(worst, nw)
+        out[kind] = {"normwise_err": worst, "limit": BLOCK_TOL[kind],
+                     "cpu_s": cpu_s, "card_s": card_s}
+    emit(blocks={"S": BLOCK_S, "d_model": cfg.d_model, "dtype": "float32",
+                 **out})
+
+
+def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
+    """A ``kernels`` line entry: times at the batch-1 serving shape, the
+    batch-2 ones (the path's own batch) beside them."""
+    one, two = times[1], times[SERVE_BATCH]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": one["ms"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+            "bound_by": one["bound_by"], "library_ms": one["library_ms"],
+            "shape": one["shape"], "ms_batch2": two["ms"],
+            "plain_ms_batch2": two["plain_ms"],
+            "bound_ms_batch2": two["bound_ms"],
+            "library_ms_batch2": two["library_ms"], **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    from repro_torch.kernels import thinning_rmw as trmw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.streaming.workload import REGIMES, generate
 
     t_start = time.perf_counter()
+    build_kernels()
     worst, times = phase_kernel(device)
 
     t0 = time.perf_counter()
@@ -343,6 +711,9 @@ def main() -> int:
                    "gen_s": time.perf_counter() - t0})
     launches = phase_stream(device, stream)
     phase_parity(device, stream)
+    attn_worst, serving_times = phase_serving_kernels(device)
+    serve_launches = phase_serve(device)
+    phase_blocks(device)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -363,7 +734,17 @@ def main() -> int:
         "us_b4096": 1e3 * t4096["ms"], "us_b256": 1e3 * t256["ms"],
         "plain_us_b4096": 1e3 * t4096["plain_ms"],
         "bound_us_b4096": 1e3 * t4096["bound_ms"],
-        "wrapper_us_b4096": 1e3 * t4096["wrapper_ms"]}])
+        "wrapper_us_b4096": 1e3 * t4096["wrapper_ms"]},
+        serving_kernel_entry(
+            "decay_scan", "src/repro/kernels/decay_scan.py:33",
+            serve_launches["decay_scan"], 0.0,
+            serving_times["decay_scan"], bitwise_vs_plain_card=True),
+        serving_kernel_entry(
+            "flash_attention", "src/repro/kernels/flash_attention.py:37",
+            serve_launches["flash_attention"],
+            max(attn_worst.values()), serving_times["flash_attention"],
+            max_abs_err_float32=attn_worst[torch.float32],
+            max_abs_err_bfloat16=attn_worst[torch.bfloat16])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

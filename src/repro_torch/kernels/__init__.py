@@ -1,1 +1,2 @@
-"""The fused persistence-path RMW: CUDA kernel, plain version, wrapper."""
+"""The port's three kernels: CUDA sources' bindings, plain versions,
+wrappers."""

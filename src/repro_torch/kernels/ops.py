@@ -1,13 +1,16 @@
-"""Public wrapper of the fused persistence-path RMW (PyTorch).
+"""Public wrappers of the port's three kernels (PyTorch).
 
-The counterpart of ``repro.kernels.ops.thinning_rmw``: the single
+The counterparts of ``repro.kernels.ops``: ``thinning_rmw`` (the single
 decision + update implementation that ``core/engine.py`` routes both
-execution modes through.  Dispatch follows the tensors, not a flag: CUDA
-tensors go to the hand-written kernel (``kernels/thinning_rmw.py``), CPU
-tensors to the plain version (``kernels/ref.py``).  There is no fallback
-from one to the other — a CUDA tensor reaches the kernel or the call raises.
+execution modes through), ``decay_scan`` (the RG-LRU prefill recurrence)
+and ``flash_attention`` (the local-attention prefill).  Dispatch follows the
+tensors, not a flag: CUDA tensors go to the hand-written kernels
+(``kernels/thinning_rmw.py``, ``decay_scan.py``, ``flash_attention.py``),
+CPU tensors to the plain versions (``kernels/ref.py``).  There is no
+fallback from one to the other — a CUDA tensor reaches the kernel or the
+call raises.  Nothing is padded: the kernels mask their ragged edges.
 
-Two contracts every caller inherits from the reference:
+Two contracts every caller of ``thinning_rmw`` inherits from the reference:
 
 * **Full-stream control column.**  ``v_full`` / ``last_t_full`` advance on
   every valid event, the persisted columns only on ``z``.  Decision-only
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decay_scan as _ds
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import thinning_rmw as _tr
 from repro_torch.kernels.ref import FRESH_SENTINEL, POLICIES
@@ -53,3 +58,28 @@ def thinning_rmw(taus, last_t, v_f, agg_flat, q, t, u, valid,
     if device.type == "cpu":
         return ref.thinning_rmw_ref(*args, **kw)
     raise ValueError(f"thinning_rmw has no implementation for {device}")
+
+
+def decay_scan(a, u, h0=None):
+    """h[t] = a[t]*h[t-1] + u[t].  a, u: [T, C] float32; h0: [C] or None."""
+    if a.device.type == "cuda":
+        return _ds.decay_scan_cuda(a, u, h0)
+    if a.device.type == "cpu":
+        _ds.check_args(a, u, h0)
+        return ref.decay_scan_ref(a, u, h0)
+    raise ValueError(f"decay_scan has no implementation for {a.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D] (float32 or
+    bfloat16)."""
+    if q.device.type == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        _fa.check_args(q, k, v, window=window, softcap=softcap)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    raise ValueError(f"flash_attention has no implementation for "
+                     f"{q.device}")

@@ -1,4 +1,10 @@
-"""Plain PyTorch version of the fused persistence-path RMW.
+"""Plain PyTorch versions of the port's three kernels.
+
+``decay_scan_ref`` and ``attention_ref`` transcribe ``repro.kernels.ref``'s
+oracles of the same names (held to the JAX package's own tolerances on the
+CPU); the CUDA kernels ``csrc/decay_scan.cu`` (bitwise) and
+``csrc/flash_attention.cu`` (to a tolerance) are held against them on the
+card.  The rest of this module is the fused persistence-path RMW.
 
 ``thinning_rmw_ref`` transcribes ``repro.kernels.ref.thinning_rmw_ref`` and
 is bitwise equal to it on the CPU: the same op sequence, each op rounded
@@ -162,3 +168,48 @@ def _thinning_rmw(taus, last_t, v_f, agg_flat, q, t, u, valid, v_full,
     new_last_t_full = torch.where(valid_b, t, last_t_full)
     return (new_last_t, new_v_f, new_agg.reshape(B, 3 * T), z, p, feats,
             lam, new_v_full, new_last_t_full)
+
+
+def decay_scan_ref(a: torch.Tensor, u: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h[t] = a[t]*h[t-1] + u[t], a loop over T.  a, u: [T, C]; h0: [C].
+
+    The product and the sum are two torch ops, each rounded once, so the
+    CUDA kernel (``__fmul_rn`` then ``__fadd_rn``) is bitwise equal to it.
+    """
+    h = torch.zeros_like(a[0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[0]):
+        h = a[t] * h
+        h = h + u[t]
+        out[t] = h
+    return out
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Dense attention.  q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D].
+
+    K/V are repeated over the group; scores are float32 (products of the
+    inputs, exact for bfloat16), masked to -1e30; the softmax weights are
+    rounded to ``v.dtype`` before the float32 PV product.
+    """
+    B, H, Sq, D = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    G = H // Kh
+    kk = k.repeat_interleave(G, dim=1)
+    vv = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (D ** -0.5)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), vv.float())
+    return out.to(q.dtype)

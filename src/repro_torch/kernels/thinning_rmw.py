@@ -1,11 +1,9 @@
-"""CUDA ``thinning_rmw``: build, bind and launch ``csrc/thinning_rmw.cu``.
+"""CUDA ``thinning_rmw``: bind and launch ``csrc/thinning_rmw.cu``.
 
 The kernel replaces the Pallas TPU kernel of ``repro.kernels.thinning_rmw``
 (see the note at the top of the CUDA source for its numerics, design and
-bound).  It is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point, loaded with ``ctypes`` at first use and cached
-by a hash of the source and the flags under ``build/repro_torch/`` at the
-root of the checkout.  Nothing is built or loaded when the module is
+bound).  ``KERNEL`` builds it with ``nvcc`` at first use
+(``kernels/_build.py``); nothing is built or loaded when the module is
 imported.
 
 ``launches`` counts kernel launches made through ``thinning_rmw_cuda``; a
@@ -15,81 +13,27 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.ref import POLICIES
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
-    "thinning_rmw.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-ftz=true", "-prec-div=true",
-              "-prec-sqrt=true", "-shared", "-Xcompiler", "-fPIC")
-
 launches = 0            # kernel launches since the last reset
-build_seconds = None    # wall time of this process's nvcc run (None: cached)
-build_log = ""          # nvcc's output (ptxas register/spill report)
-
-_lock = threading.Lock()
-_lib = None
 
 
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch"
+def _bind(lib) -> None:
+    fn = lib.thinning_rmw_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 19
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("thinning_rmw needs nvcc to build its CUDA kernel")
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel library if no build of this source exists yet."""
-    global build_seconds, build_log
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"thinning_rmw-{digest[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)          # atomic: concurrent builders agree
-    build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    return out
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.thinning_rmw_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 19
-                           + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
-                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-            _lib = lib
-        return _lib
+KERNEL = CudaKernel("thinning_rmw", ("-fmad=false", "-ftz=true",
+                                     "-prec-div=true", "-prec-sqrt=true"),
+                    _bind)
 
 
 def _check(name, x, device, shape):
@@ -132,7 +76,7 @@ def thinning_rmw_cuda(taus, last_t, v_f, agg_flat, q, t, u, valid, v_full,
     new_agg, feats = f32(B, 3 * T), f32(B, 4 * T)
     z = torch.empty((B,), dtype=torch.bool, device=device)   # one byte, 0/1
     if B:
-        fn = _load().thinning_rmw_launch
+        fn = KERNEL.lib().thinning_rmw_launch
         ptr = lambda x: ctypes.c_void_p(x.data_ptr())
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,118 @@
+"""RG-LRU recurrent block (RecurrentGemma, arXiv:2402.19427), PyTorch.
+
+The counterpart of ``repro.models.rglru``.  The recurrence
+h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t) is a diagonal
+first-order linear recurrence: the prefill runs it through
+``ops.decay_scan`` (the hand-written CUDA kernel on the card) where the JAX
+package runs ``jax.lax.associative_scan``; decode keeps O(1) state and
+takes one step in plain torch.
+
+As in the reference, the gate branch goes through GELU twice
+(``gate = gelu(x w_y)``, then ``gelu(gate) * h``), and both GELUs are
+``jax.nn.gelu``'s tanh approximation.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import Spec, gelu
+
+_C = 8.0  # RG-LRU recurrence-gate temperature
+
+
+def rglru_specs(cfg) -> dict:
+    D = cfg.d_model
+    R = cfg.rglru_expand * D
+    return {
+        "w_y": Spec((D, R)),                         # gate branch
+        "w_x": Spec((D, R)),                         # recurrent branch
+        "conv_w": Spec((cfg.rglru_conv_width, R), "normal",
+                       fan_in=cfg.rglru_conv_width),
+        "conv_b": Spec((R,), "zeros"),
+        "w_a": Spec((R, R)),                         # recurrence gate
+        "b_a": Spec((R,), "zeros"),
+        "w_i": Spec((R, R)),                         # input gate
+        "b_i": Spec((R,), "zeros"),
+        "lam": Spec((R,), "rglru_a"),                # learnable decay logits
+        "w_out": Spec((R, D), fan_in=R),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv over time as W shifted multiply-adds in x's
+    dtype (the reference's order; ``F.conv1d`` would sum differently)."""
+    W = w.shape[0]
+    out = x * w[W - 1]
+    for i in range(1, W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
+        out = out + shifted * w[W - 1 - i]
+    return out + b
+
+
+def _gates(p, xr, dtype):
+    """(a, u), both float32: the decay and the recurrence input."""
+    r = torch.sigmoid(torch.matmul(xr, p["w_a"].to(dtype))
+                      + p["b_a"].to(dtype))
+    i = torch.sigmoid(torch.matmul(xr, p["w_i"].to(dtype))
+                      + p["b_i"].to(dtype))
+    log_a = -_C * F.softplus(-p["lam"].float()) * r.float()  # log a_t <= 0
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
+    return a, mult * i.float() * xr.float()
+
+
+class RGLRUState(NamedTuple):
+    conv: torch.Tensor  # [B, W-1, R]
+    h: torch.Tensor     # [B, R] fp32
+
+
+def rglru_block(p, x: torch.Tensor, cfg, return_state: bool = False):
+    """Prefill.  x: [B, S, D] -> [B, S, D] (+ final RGLRUState).
+
+    The recurrence runs as one ``decay_scan`` over ``[S, B*R]``: the batch
+    is folded into the channels, so a prefill launches one scan per block.
+    """
+    B, S, _ = x.shape
+    gate = gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
+    xr_pre = torch.matmul(x, p["w_x"].to(x.dtype))
+    xr = _causal_conv(xr_pre, p["conv_w"].to(x.dtype),
+                      p["conv_b"].to(x.dtype))
+    a, u = _gates(p, xr, x.dtype)
+    R = a.shape[-1]
+    fold = lambda t: t.transpose(0, 1).reshape(S, B * R).contiguous()
+    h = ops.decay_scan(fold(a), fold(u)).reshape(S, B, R).transpose(0, 1)
+    y = (gelu(gate).float() * h).to(x.dtype)
+    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    if return_state:
+        W = cfg.rglru_conv_width
+        # the last W-1 inputs of the conv, zeros before the first token
+        conv = F.pad(xr_pre, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
+        return out, RGLRUState(conv=conv.contiguous(), h=h[:, -1].clone())
+    return out
+
+
+def rglru_init_state(cfg, batch: int, dtype, device) -> RGLRUState:
+    R = cfg.rglru_expand * cfg.d_model
+    return RGLRUState(
+        conv=torch.zeros((batch, cfg.rglru_conv_width - 1, R), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, R), dtype=torch.float32, device=device))
+
+
+def rglru_decode_step(p, x: torch.Tensor, state: RGLRUState, cfg):
+    """x: [B, 1, D] -> ([B, 1, D], state)."""
+    xt = x[:, 0]
+    gate = gelu(xt @ p["w_y"].to(x.dtype))
+    xr = xt @ p["w_x"].to(x.dtype)
+    hist = torch.cat([state.conv, xr[:, None]], dim=1)
+    xr = torch.einsum("bwc,wc->bc", hist, p["conv_w"].to(x.dtype)) \
+        + p["conv_b"].to(x.dtype)
+    a, u = _gates(p, xr[:, None], x.dtype)
+    h = a[:, 0] * state.h + u[:, 0]
+    y = (gelu(gate).float() * h).to(x.dtype)
+    out = y @ p["w_out"].to(x.dtype)
+    return out[:, None], RGLRUState(conv=hist[:, 1:], h=h)
