@@ -5,8 +5,10 @@
 
 It builds the port's three CUDA kernels from this checkout's sources
 (``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
-for ``sm_90a``, all started together, into ``build/``), then runs six
-phases; any failure raises and the script exits non-zero.
+for ``sm_90a``, all started together, into ``build/``), checks with
+``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
+(tensor-core) instructions, then runs six phases; any failure raises and
+the script exits non-zero.
 
 1. Kernel: the kernel on the card against its plain PyTorch version on the
    CPU (which the CPU tests hold bitwise to the JAX reference), bitwise on
@@ -56,6 +58,11 @@ phases; any failure raises and the script exits non-zero.
    and 1e-3 for ``rec``, whose input ``sqrt(1 - a^2)`` cancels near
    a = 1 and amplifies the one-ulp differences of the card's and the
    CPU's ``exp``.
+
+After phase 6 the ``scaled_dot_product_attention`` call of phase 4 is
+timed under each backend that accepts its boolean mask, and the backend
+its default dispatch picked is named (matched by the kernels it
+launches).
 
 Earlier lines print JSON records; the line before the last is the kernel
 table, the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -198,19 +205,43 @@ def trmw_ops(B, T, policy):
     return B * per_row
 
 
+def sass_counts(lib_path, kernel: str, opcodes) -> dict:
+    """How many times each SASS opcode occurs in the built library's
+    functions whose name contains ``kernel`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = dict.fromkeys(opcodes, 0), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in opcodes:
+                counts[op] += f" {op}." in line or f" {op} " in line
+    return counts
+
+
 def build_kernels():
-    """Start one nvcc per kernel source, all together."""
+    """Start one nvcc per kernel source, all together; check that the
+    bfloat16 attention kernel runs its products on the tensor cores."""
     from repro_torch.kernels import _build, decay_scan, flash_attention
     from repro_torch.kernels import thinning_rmw as trmw
 
     kernels = (trmw.KERNEL, decay_scan.KERNEL, flash_attention.KERNEL)
     t0 = time.perf_counter()
     _build.build_all(kernels)
-    emit(build={"wall_s": time.perf_counter() - t0, "kernels": {
+    wall = time.perf_counter() - t0
+    sass = sass_counts(flash_attention.KERNEL.library_path(),
+                       "flash_attention_tc", ("HGMMA", "HMMA"))
+    check(sass["HGMMA"] > 0, f"no HGMMA in the bf16 attention kernel: {sass}")
+    emit(build={"wall_s": wall, "kernels": {
         k.name: {"seconds": k.build_seconds,
                  "ptxas": [ln.strip() for ln in k.build_log.splitlines()
-                           if "registers" in ln or "spill" in ln]}
-        for k in kernels}})
+                           if "registers" in ln or "spill" in ln
+                           or "C7512" in ln]}
+        for k in kernels}, "flash_attention_tc_sass": sass})
 
 
 def phase_kernel(device):
@@ -413,6 +444,51 @@ def attention_limit(want: torch.Tensor) -> torch.Tensor:
     if want.dtype == torch.bfloat16:
         return BF16_RTOL * w + BF16_FLOOR * w.amax(-1, keepdim=True)
     return F32_TOL + F32_TOL * w
+
+
+def device_kernels(fn) -> set:
+    """Names of the GPU kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def sdpa_backends(device, batch) -> dict:
+    """The yardstick of phase 4 at the serving shape of ``batch``: one
+    ``scaled_dot_product_attention`` with the boolean window mask, timed
+    under each backend alone (``None`` where the backend refuses the
+    inputs), and the backend that the default dispatch picks, named by the
+    kernels it launches.  Run after the serving phase: the profiler it
+    uses stays out of the timed serving run."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    S, W = PROMPT, 2048
+    q, k, v = (torch.randn(batch, h, S, 256, generator=gen, device=device,
+                           dtype=torch.bfloat16) for h in (10, 1, 1))
+    pos = torch.arange(S, device=device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    call = lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    times, kernels = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                kernels[backend.name] = device_kernels(call)
+                times[backend.name] = cuda_ms(call, 10)
+        except RuntimeError:
+            times[backend.name] = None
+    default = device_kernels(call)
+    picked = [name for name, ks in kernels.items() if ks == default]
+    return {"ms": times, "default": picked[0] if picked else None,
+            "default_kernels": sorted(name[:100] for name in default)}
 
 
 def phase_serving_kernels(device):
@@ -714,6 +790,8 @@ def main() -> int:
     attn_worst, serving_times = phase_serving_kernels(device)
     serve_launches = phase_serve(device)
     phase_blocks(device)
+    backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
+    emit(sdpa_backends=backends)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -744,7 +822,9 @@ def main() -> int:
             serve_launches["flash_attention"],
             max(attn_worst.values()), serving_times["flash_attention"],
             max_abs_err_float32=attn_worst[torch.float32],
-            max_abs_err_bfloat16=attn_worst[torch.bfloat16])])
+            max_abs_err_bfloat16=attn_worst[torch.bfloat16],
+            library_backend=backends[1]["default"],
+            library_backend_batch2=backends[SERVE_BATCH]["default"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -2,8 +2,9 @@
 
 Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C entry point, loaded with ``ctypes`` at first use and
-cached by a hash of the source and the flags under ``build/repro_torch/``
-at the root of the checkout.  Nothing is built or loaded when a module is
+cached under ``build/repro_torch/`` at the root of the checkout by a hash
+of the source, of every header it includes by quoted path (recursively)
+and of the flags.  Nothing is built or loaded when a module is
 imported.  ``build_all`` starts one ``nvcc`` per kernel, all at once.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,36 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: pathlib.Path) -> list:
+    """``source`` and every file it includes by quoted path, recursively,
+    each resolved beside the file that includes it (as ``nvcc`` does)."""
+    found, todo = [], [pathlib.Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for name in _QUOTED_INCLUDE.findall(path.read_text()):
+            included = (path.parent / name).resolve()
+            if included.exists():
+                todo.append(included)
+    return found
+
+
+def source_digest(source: pathlib.Path, flags) -> str:
+    """Hash of ``source``, the headers it includes and the flags."""
+    source = pathlib.Path(source).resolve()
+    h = hashlib.sha256()
+    for path in sorted(source_files(source)):
+        h.update(os.path.relpath(path, source.parent).encode() + b"\0")
+        h.update(path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()
 
 
 def nvcc() -> str:
@@ -54,12 +86,14 @@ class CudaKernel:
         self._lib = None
         self._lock = threading.Lock()
 
+    def library_path(self) -> pathlib.Path:
+        """Where the build of the current sources and flags goes."""
+        digest = source_digest(self.source, self.flags)
+        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+
     def build(self) -> pathlib.Path:
-        """Compile the library if no build of this source exists yet."""
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(
-            src + " ".join(self.flags).encode()).hexdigest()
-        out = BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+        """Compile the library if no build of these sources exists yet."""
+        out = self.library_path()
         if out.exists():
             return out
         out.parent.mkdir(parents=True, exist_ok=True)

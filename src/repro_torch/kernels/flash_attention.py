@@ -4,8 +4,10 @@ The kernel replaces the Pallas TPU kernel of
 ``repro.kernels.flash_attention`` (the note at the top of the CUDA source
 gives its semantics, design and bound): online-softmax GQA attention with
 causal and local-window masks and a tanh softcap, on float32 or bfloat16
-``q [B, H, Sq, D]``, ``k``/``v [B, Kh, Skv, D]``.  ``KERNEL`` builds it with
-``nvcc`` at first use; nothing is built or loaded at import.
+``q [B, H, Sq, D]``, ``k``/``v [B, Kh, Skv, D]``.  bfloat16 runs both
+products on the tensor cores (``wgmma``, TMA-fed); float32 stays on scalar
+FMAs, since a tensor-core float32 product would be TF32.  ``KERNEL`` builds
+it with ``nvcc`` at first use; nothing is built or loaded at import.
 
 ``launches`` counts kernel launches made through ``flash_attention_cuda``.
 """
@@ -20,7 +22,7 @@ from repro_torch.kernels._build import CudaKernel
 
 launches = 0            # kernel launches since the last reset
 
-MAX_HEAD_DIM = 256      # the kernel's accumulator columns per thread x 16
+MAX_HEAD_DIM = 256      # the widest O accumulator either path holds
 DTYPES = (torch.float32, torch.bfloat16)   # index = the kernel's dtype code
 
 

@@ -201,8 +201,22 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(case):
 
 
 # ------------------------------------------------- kernels on a CUDA card
+def _bf16_ratio(got, want):
+    """The largest |got - want| over the bf16 limit: two ulps of each value
+    plus 2^-7 of its row's largest value."""
+    got, want = got.float().cpu(), want.float().cpu()
+    limit = 2.0 ** -6 * want.abs() + \
+        2.0 ** -7 * want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() / limit).max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,C", [(1, 1), (7, 100), (256, 2560), (33, 5120)])
+@pytest.mark.parametrize("T,C", [
+    (1, 1), (7, 100), (256, 2560), (33, 5120),
+    # many ring stages, a ragged last stage (T not a multiple of the stage
+    # length) and a ragged channel edge (C not a multiple of the block's
+    # width, or of 4, which takes the copy path instead of TMA)
+    (4096, 2560), (4096, 5120), (1000, 2600), (4097, 33)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_decay_scan_kernel_bitwise_vs_plain(cuda_device, T, C, with_h0):
     a, u, h0 = (torch.tensor(x, device=cuda_device)
@@ -231,13 +245,38 @@ def test_flash_attention_kernel_vs_plain(cuda_device, shape, causal, window,
     want = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == launches + 1
-    got, want = got.float().cpu(), want.float().cpu()
     if dtype == "bfloat16":
-        # two bfloat16 ulps of each value, plus 2^-7 of its row's scale
-        limit = 2.0 ** -6 * want.abs() + \
-            2.0 ** -7 * want.abs().amax(-1, keepdim=True)
-        ratio = float(((got - want).abs() / limit).max())
+        ratio = _bf16_ratio(got, want)
         assert ratio <= 1.0, f"error at {ratio} of the limit"
     else:
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
-                                   atol=2e-4)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,softcap,offset", [
+    ((2, 4, 2, 100, 100, 40), True, 0, 0.0, 0),      # D % 16 != 0, TMA
+    ((1, 4, 1, 130, 130, 33), True, 48, 10.0, 0),    # odd D: copied tiles
+    ((2, 4, 2, 96, 64 * 5 + 7, 64), True, 48, 0.0, 0),   # Sq < Skv, window
+    ((1, 4, 2, 70, 70, 64), False, 0, 0.0, 1),       # unaligned: copied
+    ((2, 10, 1, 4096, 4096, 256), True, 2048, 0.0, 0),   # serving, batch 2
+])
+def test_flash_attention_bf16_tensor_core_cases(cuda_device, shape, causal,
+                                                window, softcap, offset):
+    B, H, Kh, Sq, Skv, D = shape
+    qkv = []
+    for x in _attn_inputs(*shape, seed=list(shape) + [window, offset]):
+        flat = torch.empty(x.size + offset, dtype=torch.bfloat16,
+                           device=cuda_device)
+        t = flat[offset:].view(x.shape)     # contiguous, `offset` elements in
+        t.copy_(torch.tensor(x))
+        qkv.append(t)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    launches = fa.launches
+    got = ops.flash_attention(*qkv, **kw)
+    want = ref.attention_ref(*qkv, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 1
+    assert bool(torch.isfinite(got).all())
+    ratio = _bf16_ratio(got, want)
+    assert ratio <= 1.0, f"error at {ratio} of the limit"
