@@ -10,19 +10,27 @@ for ``sm_90a``, all started together, into ``build/``), checks with
 (tensor-core) instructions, then runs six phases; any failure raises and
 the script exits non-zero.
 
-1. Kernel: the kernel on the card against its plain PyTorch version on the
-   CPU (which the CPU tests hold bitwise to the JAX reference), bitwise on
-   all 9 outputs, over B x T x policy; then the kernel's and the plain
-   version's times on the card at the engine's block shapes.
+1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
+   version on the CPU (which the CPU tests hold bitwise to the JAX
+   reference), bitwise, over B x T x policy: the rows entry on all 9
+   outputs; the keyed entry over an 800,000-row table in both modes
+   (decision only: z, p, lam, features; write-back: those and the whole
+   state after the in-place update), keys repeating (decision) or distinct
+   (write-back, with empty slots and a valid event on the padding key 0),
+   never-persisted and NaN times, an RNG entity at or above 2^31 on half
+   the cases.  Then the kernel's and the plain versions' times on the card
+   at the engine's block shapes, beside the bound.
 2. Stream: ``run_stream`` on the card at the paper's iiot key count
    (800,000 keys, 2,000,000 events, six decay windows, write budget
    Lambda*h = 0.1), fast mode at batch 4096: dense ``pp``, then ``pp`` and
-   ``pp_vr`` through a 4-partition write-behind sink.  The kernel's launch
-   count must equal the block count of each run.
-3. Parity: exact mode on a 262,144-event prefix on the card and on the CPU
-   (decisions, state and sink bytes identical); two fast-mode runs on the
-   card (identical state); one fast block from a shared state on the card
-   and on the CPU (identical decisions, state within 1e-5 relative).
+   ``pp_vr`` through a 4-partition write-behind sink.  The keyed kernel's
+   launch count must equal the block count of each run, and neither the
+   plain uniforms nor the plain row gather may run on a CUDA tensor.
+3. Parity: exact mode (one keyed write-back launch per chunk) on a
+   262,144-event prefix on the card and on the CPU (decisions, state and
+   sink bytes identical); two fast-mode runs on the card (identical
+   state); one fast block from a shared state on the card and on the CPU
+   (identical decisions, state within 1e-5 relative).
 4. Kernels of the serving path: ``decay_scan`` on the card bitwise against
    its plain loop on the card over T x C x (with, without h0);
    ``flash_attention`` against its plain version on the card over MHA,
@@ -73,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -205,6 +214,32 @@ def trmw_ops(B, T, policy):
     return B * per_row
 
 
+THREEFRY_OPS = 3 * 79 + 4   # 32-bit integer operations of one uniform
+
+
+def keyed_bytes(B, T, separate_ent):
+    """Bytes the keyed decision pass must move: each event's key (8), q,
+    t (4 each), valid (1), its row ((4 + 3T) floats) and, when it is not
+    the key, its RNG entity (8) read once; z (1), p, lam (4 each) and the
+    4T features written once; taus."""
+    per_event = 8 + 4 + 4 + 1 + 4 * (4 + 3 * T) + (8 if separate_ent else 0)
+    return B * (per_event + 1 + 4 + 4 + 16 * T) + 4 * T
+
+
+def keyed_ops(B, T, policy):
+    """The fused pass's float32 operations plus the threefry uniform's
+    32-bit integer ones (three 20-round blocks of 79, and 4 to make the
+    float), both counted at the float32 rate."""
+    return trmw_ops(B, T, policy) + B * THREEFRY_OPS
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) against the card's memory and float32 rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
 def sass_counts(lib_path, kernel: str, opcodes) -> dict:
     """How many times each SASS opcode occurs in the built library's
     functions whose name contains ``kernel`` (``cuobjdump -sass``)."""
@@ -244,6 +279,132 @@ def build_kernels():
         for k in kernels}, "flash_attention_tc_sass": sass})
 
 
+def keyed_table(rng, N, T):
+    """A profile table as host tensors: never-persisted rows (-inf) and
+    NaN times in both time columns."""
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    fresh = rng.random(N) < 0.3
+    last_t = np.where(fresh, -np.inf, rng.uniform(0, 1e4, N))
+    last_t[(rng.random(N) < 0.05) & ~fresh] = np.nan
+    last_t_full = np.where(fresh & (rng.random(N) < 0.5), -np.inf,
+                           rng.uniform(0, 1.2e4, N))
+    last_t_full[rng.random(N) < 0.05] = np.nan
+    return (f32(last_t), f32(np.where(fresh, 0, rng.uniform(0, 50, N))),
+            f32(rng.uniform(0, 10, (N, T, 3)) * ~fresh[:, None, None]),
+            f32(rng.uniform(0, 80, N)), f32(last_t_full))
+
+
+def keyed_events(rng, N, B, distinct, big_ent):
+    """B events on an N-row table (host tensors): keys repeat, or are
+    distinct on the valid events (invalid ones on key 0, and one valid
+    event on key 0 too); N - 1 is always among them."""
+    valid = rng.random(B) < 0.9
+    if distinct:
+        key = rng.choice(np.arange(1, N - 1), B, replace=False)
+        key[~valid] = 0
+        valid[B // 2] = True
+        key[B // 2] = 0
+    else:
+        key = rng.integers(0, N, B)
+        key[1::7] = key[0]
+    valid[0] = True
+    key[0] = N - 1
+    ent = rng.integers(2 ** 31, 2 ** 32, B) if big_ent else key
+    lanes = rng.permutation(np.concatenate(
+        [rng.permutation(B), np.full(B // 8, B)]))
+    i64 = lambda x: torch.tensor(np.asarray(x, np.int64))
+    return (i64(key), i64(ent), torch.tensor(rng.lognormal(3, 1, B),
+                                             dtype=torch.float32),
+            torch.tensor(rng.uniform(1e4, 2e4, B), dtype=torch.float32),
+            torch.tensor(valid), i64(lanes))
+
+
+def keyed_case(table, taus, events, write_back, policy, T):
+    """One keyed pass on the device that ``table`` and ``taus`` lie on
+    (over a copy of the table with write-back); returns the outputs and
+    (with write-back) the state, on the CPU."""
+    from repro_torch.core import ProfileState
+    from repro_torch.kernels import ops
+
+    device = taus.device
+    key, ent, q, t, valid, lanes = (x.to(device) for x in events)
+    B = key.shape[0]
+    state = ProfileState(*(x.clone() if write_back else x for x in table))
+    out = None
+    if write_back:
+        out = (torch.zeros(B, dtype=torch.bool, device=device),
+               torch.full((B,), -1.0, device=device),
+               torch.full((B, 4 * T), -1.0, device=device),
+               torch.full((B,), -1.0, device=device))
+    got = ops.thinning_rmw_keyed(
+        taus, state, key, q, t, valid, (3, 0xDEADBEEF), ent,
+        write_back=write_back, lanes=lanes if write_back else None, out=out,
+        **trmw_kw(policy, T))
+    return [x.cpu() for x in got] + ([x.cpu() for x in state]
+                                     if write_back else [])
+
+
+def keyed_times(device, B, T=6, policy="pp"):
+    """The keyed kernel's times at block size B over the 800,000-row table:
+    decision only (the fast step's launch) and write-back of a 256-row
+    chunk (the exact step's), with the plain version's and the bound."""
+    from repro_torch.core import ProfileState
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import thinning_rmw as trmw
+
+    rng = np.random.default_rng([B, T])
+    state = ProfileState(*(x.to(device) for x in keyed_table(rng, N_KEYS,
+                                                             T)))
+    taus = torch.tensor(np.geomspace(60, 86400, T), dtype=torch.float32,
+                        device=device)
+    key, _, q, t, valid, _ = (x.to(device) for x in keyed_events(
+        rng, N_KEYS, B, False, False))
+    kw = trmw_kw(policy, T)
+    args = (taus, state, key, q, t, valid, (0, 7))
+    kernel = lambda: trmw.thinning_rmw_keyed_cuda(*args, **kw)
+    plain = lambda: ref.thinning_rmw_keyed_ref(*args, **kw)
+    bound_ms, bound_by = bound(keyed_bytes(B, T, False),
+                               keyed_ops(B, T, policy))
+    rec = {"ms": graph_ms(kernel, 100, 20),
+           "wrapper_ms": cuda_ms(kernel, 500), "plain_ms": cuda_ms(plain, 20),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    # one exact-mode chunk: 256 lanes over B distinct-key events
+    key, _, q, t, valid, lanes = (x.to(device) for x in keyed_events(
+        rng, N_KEYS, B, True, False))
+    lanes = lanes[:256]
+    out = (torch.zeros(B, dtype=torch.bool, device=device),
+           *(torch.zeros(s, device=device) for s in ((B,), (B, 4 * T), (B,))))
+    chunk = lambda: trmw.thinning_rmw_keyed_cuda(
+        taus, state, key, q, t, valid, (0, 7), write_back=True, lanes=lanes,
+        out=out, **kw)
+    chunk()
+    slots = lanes[lanes < B]
+    n_active = int(valid[slots].sum())
+    n_z = int(out[0][slots].sum())
+    # reads: the lane index and the active events' inputs and rows;
+    # writes: their decisions, control columns, and the z rows' columns
+    nbytes = (8 * lanes.shape[0] + n_active * (
+        8 + 4 + 4 + 1 + 4 * (4 + 3 * T) + 1 + 4 + 4 + 16 * T + 8)
+        + n_z * 4 * (2 + 3 * T) + 4 * T)
+    rec["write_back_chunk256_ms"] = graph_ms(chunk, 100, 20)
+    rec["write_back_chunk256_bound_ms"], _ = bound(
+        nbytes, keyed_ops(lanes.shape[0], T, policy))
+    rec["write_back_chunk256_rows"] = {"active": n_active, "z": n_z}
+    return rec
+
+
+def keyed_shape():
+    """The keyed kernel's tau-parallel shape: the plain constants of its
+    source (lanes per row, rows per block)."""
+    from repro_torch.kernels import thinning_rmw as trmw
+
+    src = trmw.KERNEL.source.read_text()
+    const = lambda name: int(re.search(
+        rf"constexpr int {name} = (\d+);", src).group(1))
+    return {"lanes_per_row": const("kLanes"),
+            "rows_per_block": const("kRowsPerBlock")}
+
+
 def phase_kernel(device):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import thinning_rmw as trmw
@@ -269,6 +430,32 @@ def phase_kernel(device):
     emit(kernel_grid={"cases": cases, "bitwise_vs_plain_cpu": True,
                       "max_abs_err": worst})
 
+    keyed_cases, launched = 0, trmw.keyed_launches
+    for T in (2, 3, 6):
+        table = keyed_table(np.random.default_rng(T), N_KEYS, T)
+        taus = torch.tensor(np.geomspace(60, 86400, T), dtype=torch.float32)
+        card = ([x.to(device) for x in table], taus.to(device))
+        for B in (1, 100, 256, 4096, 65536):
+            for policy in POLICIES:
+                for write_back in (False, True):
+                    events = keyed_events(np.random.default_rng(
+                        [B, T, POLICIES.index(policy), write_back]), N_KEYS,
+                        B, write_back, keyed_cases % 2 == 1)
+                    args = (events, write_back, policy, T)
+                    got = keyed_case(*card, *args)
+                    want = keyed_case(table, taus, *args)
+                    for g, w in zip(got, want):
+                        check(bitwise_equal(g, w),
+                              f"keyed kernel != plain at B={B} T={T} "
+                              f"{policy} write_back={write_back}: max abs "
+                              f"err {max_abs_err(g, w)}")
+                    keyed_cases += 1
+    check(trmw.keyed_launches - launched == keyed_cases,
+          f"{trmw.keyed_launches - launched} keyed launches for "
+          f"{keyed_cases} cases")
+    emit(keyed_grid={"cases": keyed_cases, "table_rows": N_KEYS,
+                     "bitwise_vs_plain_cpu": True, "max_abs_err": worst})
+
     times = {}
     for B in (4096, 256):
         T, policy = 6, "pp"
@@ -277,17 +464,39 @@ def phase_kernel(device):
         kw = trmw_kw(policy, T)
         kernel = lambda: trmw.thinning_rmw_cuda(*args, **kw)
         plain = lambda: ref.thinning_rmw_ref(*args, **kw)
+        bound_ms, bound_by = bound(trmw_bytes(B, T), trmw_ops(B, T, policy))
         times[B] = {
             "ms": graph_ms(kernel, 100, 20),
             "wrapper_ms": cuda_ms(kernel, 500),
             "plain_ms": cuda_ms(plain, 50),
-            "bound_ms": 1e3 * max(trmw_bytes(B, T) / HBM_BYTES_PER_S,
-                                  trmw_ops(B, T, policy) / F32_OPS_PER_S),
-            "bound_by": ("bytes" if trmw_bytes(B, T) / HBM_BYTES_PER_S
-                         >= trmw_ops(B, T, policy) / F32_OPS_PER_S
-                         else "operations")}
-    emit(kernel_times={str(B): v for B, v in times.items()})
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "keyed": keyed_times(device, B)}
+    emit(kernel_times={str(B): v for B, v in times.items()},
+         keyed_shape=keyed_shape())
     return worst, times
+
+
+def reset_counts():
+    """Zero the keyed kernel's launch count and the plain steps' CUDA
+    call counts (uniforms, row gather)."""
+    from repro_torch.kernels import ref, threefry
+    from repro_torch.kernels import thinning_rmw as trmw
+
+    trmw.launches = trmw.keyed_launches = 0
+    threefry.cuda_calls = ref.gather_cuda_calls = 0
+
+
+def check_no_plain_steps(what):
+    """Fail if the plain uniforms, the plain gather or the rows entry ran
+    on the card since ``reset_counts``."""
+    from repro_torch.kernels import ref, threefry
+    from repro_torch.kernels import thinning_rmw as trmw
+
+    plain = {"uniform_for_events": threefry.cuda_calls,
+             "gather_rows": ref.gather_cuda_calls,
+             "thinning_rmw_rows_entry": trmw.launches}
+    check(not any(plain.values()), f"{what} ran plain steps on the card: "
+          f"{plain}")
 
 
 def phase_stream(device, stream):
@@ -297,14 +506,14 @@ def phase_stream(device, stream):
 
     n_blocks = -(-len(stream.key) // BATCH)
     runs = [("pp", None), ("pp", 4), ("pp_vr", 4)]
-    trmw.launches = 0                       # the main path starts here
+    reset_counts()                          # the main path starts here
     for policy, n_parts in runs:
         cfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy=policy,
                            alpha=1.0 if policy == "pp_vr" else 0.0)
         state = init_state(N_KEYS, len(cfg.taus), device=device)
         sink = (WriteBehindSink(cfg, n_partitions=n_parts, device=device)
                 if n_parts else None)
-        before = trmw.launches
+        before = trmw.keyed_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, writes = run_stream(cfg, state, stream.key, stream.q,
@@ -317,10 +526,10 @@ def phase_stream(device, stream):
         wall = time.perf_counter() - t0
         if sink:
             sink.close()
-        launched = trmw.launches - before
+        launched = trmw.keyed_launches - before
         writes = int(writes.sum())
         check(launched == n_blocks,
-              f"{launched} kernel launches for {n_blocks} blocks")
+              f"{launched} keyed kernel launches for {n_blocks} blocks")
         check(all(x.device == device for x in state), "state left the card")
         check(all(bool(torch.isfinite(x).all()) for x in
                   (state.v_f, state.agg, state.v_full)), "non-finite state")
@@ -335,7 +544,8 @@ def phase_stream(device, stream):
             "events_per_s": len(stream.key) / wall, "wall_s": wall,
             "device_done_s": t_dev,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return trmw.launches
+    check_no_plain_steps("the stream phase")
+    return trmw.keyed_launches
 
 
 def _store_bytes(sink):
@@ -349,6 +559,7 @@ def phase_parity(device, stream):
     from repro_torch.core import (EngineConfig, Event, init_state, make_step,
                                   prng_key, run_stream, state_from_numpy,
                                   state_to_numpy)
+    from repro_torch.kernels import thinning_rmw as trmw
     from repro_torch.streaming.persistence import WriteBehindSink
 
     keys, qs, ts = (stream.key[:PREFIX], stream.q[:PREFIX],
@@ -358,6 +569,7 @@ def phase_parity(device, stream):
     cfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp_vr",
                        alpha=1.0, exact_rounds=rounds)
     out = []
+    reset_counts()
     for dev in (device, torch.device("cpu")):
         sink = WriteBehindSink(cfg, n_partitions=4, device=dev)
         t0 = time.perf_counter()
@@ -370,7 +582,13 @@ def phase_parity(device, stream):
         out.append((state_to_numpy(state), [x.cpu() for x in info[:4]],
                     _store_bytes(sink), time.perf_counter() - t0,
                     int(info.writes)))
+        if dev == device:
+            check_no_plain_steps("exact mode")
+            launched = trmw.keyed_launches
     (gs, gi, gb, gt, gw), (cs, ci, cb, ct, _) = out
+    n_chunks = PREFIX // EXACT_BATCH * (-(-EXACT_BATCH // 256) + rounds)
+    check(launched == n_chunks,
+          f"exact mode: {launched} keyed launches for {n_chunks} chunks")
     for name, a, b in zip(("z", "p", "lam_hat", "features"), gi, ci):
         check(bitwise_equal(a, b), f"exact {name}: cuda != cpu")
     for name, a, b in zip(gs._fields, gs, cs):
@@ -379,6 +597,7 @@ def phase_parity(device, stream):
     check(gb == cb and len(gb) > 0, "exact sink bytes: cuda != cpu")
     emit(parity_exact={"events": PREFIX, "batch": EXACT_BATCH,
                        "exact_rounds": rounds, "policy": "pp_vr",
+                       "keyed_write_back_launches": launched,
                        "writes": gw, "rows_stored": len(gb),
                        "bitwise": True, "cuda_s": gt, "cpu_s": ct})
 
@@ -799,7 +1018,8 @@ def main() -> int:
         check=True).stdout.strip()
     emit(total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
-    t4096, t256 = times[4096], times[256]
+    rows4096, rows256 = times[4096], times[256]
+    t4096, t256 = rows4096["keyed"], rows256["keyed"]
     emit(kernels=[{
         "name": "thinning_rmw", "route": "cuda",
         "source": "src/repro_torch/csrc/thinning_rmw.cu",
@@ -808,11 +1028,21 @@ def main() -> int:
         "ms": t4096["ms"], "plain_ms": t4096["plain_ms"],
         "bound_ms": t4096["bound_ms"], "bound_by": t4096["bound_by"],
         "library_ms": None,
-        "bitwise_vs_plain_cpu": True,
+        "bitwise_vs_plain_cpu": True, "entry": "keyed, decision only",
+        **keyed_shape(),
         "us_b4096": 1e3 * t4096["ms"], "us_b256": 1e3 * t256["ms"],
         "plain_us_b4096": 1e3 * t4096["plain_ms"],
         "bound_us_b4096": 1e3 * t4096["bound_ms"],
-        "wrapper_us_b4096": 1e3 * t4096["wrapper_ms"]},
+        "bound_us_b256": 1e3 * t256["bound_ms"],
+        "wrapper_us_b4096": 1e3 * t4096["wrapper_ms"],
+        "write_back_chunk256_us": 1e3 * t4096["write_back_chunk256_ms"],
+        "write_back_chunk256_bound_us":
+            1e3 * t4096["write_back_chunk256_bound_ms"],
+        "rows_entry_us_b4096": 1e3 * rows4096["ms"],
+        "rows_entry_us_b256": 1e3 * rows256["ms"],
+        "rows_entry_plain_us_b4096": 1e3 * rows4096["plain_ms"],
+        "rows_entry_bound_us_b4096": 1e3 * rows4096["bound_ms"],
+        "rows_entry_wrapper_us_b4096": 1e3 * rows4096["wrapper_ms"]},
         serving_kernel_entry(
             "decay_scan", "src/repro/kernels/decay_scan.py:33",
             serve_launches["decay_scan"], 0.0,

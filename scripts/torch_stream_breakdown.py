@@ -8,9 +8,10 @@ Drives the iiot stream at 800,000 keys (the configuration of
 Lambda*h = 0.1, batch 4096, policy ``pp``) through the fast-mode step on
 ``cuda:0`` and prints one JSON object with, per block:
 
-* the host wall time of each layer — counter RNG, row gather, the fused
-  ``thinning_rmw`` call, and the rest of the step (the segment fold) —
-  each ended by a device synchronise;
+* the host wall time of each layer — the keyed ``thinning_rmw`` call
+  (wrapper and kernel: row gather, counter-RNG uniforms and the fused
+  decision pass in one launch) and the rest of the step (the segment
+  fold) — each ended by a device synchronise;
 * the whole step without synchronising, as ``run_stream`` runs it;
 * from ``torch.profiler`` over the unsynchronised blocks: GPU kernels per
   block, device busy time per block and the device's idle share (``null``
@@ -32,7 +33,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import (EngineConfig, Event, engine,  # noqa: E402
-                              init_state, make_step, prng_key, thinning)
+                              init_state, make_step, prng_key)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.streaming.workload import REGIMES, generate  # noqa: E402
 
@@ -75,7 +76,8 @@ def main() -> int:
     step, rng = make_step(cfg, "fast"), prng_key(0)
     state = init_state(N_KEYS, len(cfg.taus), device=dev)
     n = (WARM + 2 * args.blocks) * BATCH
-    blocks = [Event(key=torch.tensor(stream.key[i:i + BATCH], device=dev),
+    blocks = [Event(key=torch.tensor(stream.key[i:i + BATCH],
+                                     dtype=torch.int64, device=dev),
                     q=torch.tensor(stream.q[i:i + BATCH], device=dev),
                     t=torch.tensor(stream.t[i:i + BATCH], device=dev),
                     valid=torch.ones(BATCH, dtype=torch.bool, device=dev))
@@ -84,30 +86,21 @@ def main() -> int:
         step(state, ev, rng)
     taus = engine._taus(cfg, dev)
 
-    layers = {"rng": [], "gather": [], "kernel": [], "fold": [], "step": []}
+    layers = {"keyed_kernel_call": [], "fold": [], "step": []}
     sync = torch.cuda.synchronize
     for ev in blocks[WARM:WARM + args.blocks]:
-        key = ev.key.to(torch.int64)
         sync()
         t0 = time.perf_counter()
-        u = thinning.uniform_for_events(rng, key, thinning.time_bits(ev.t))
+        ops.thinning_rmw_keyed(taus, state, ev.key, ev.q, ev.t, ev.valid,
+                               rng, **engine._fused_kw(cfg))
         sync()
         t1 = time.perf_counter()
-        rows = engine._gather_rows(state, key)
-        sync()
-        t2 = time.perf_counter()
-        ops.thinning_rmw(taus, *rows[:3], ev.q, ev.t, u,
-                         ev.valid.to(torch.float32), *rows[3:],
-                         **engine._fused_kw(cfg))
-        sync()
-        t3 = time.perf_counter()
         step(state, ev, rng)
         sync()
-        t4 = time.perf_counter()
-        for name, dt in (("rng", t1 - t0), ("gather", t2 - t1),
-                         ("kernel", t3 - t2), ("step", t4 - t3)):
-            layers[name].append(dt * 1e3)
-        layers["fold"].append((t4 - t3 - (t3 - t0)) * 1e3)
+        t2 = time.perf_counter()
+        layers["keyed_kernel_call"].append((t1 - t0) * 1e3)
+        layers["step"].append((t2 - t1) * 1e3)
+        layers["fold"].append((t2 - t1 - (t1 - t0)) * 1e3)
 
     tail = blocks[WARM + args.blocks:]
     sync()

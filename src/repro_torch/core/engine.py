@@ -18,10 +18,14 @@ The counterpart of ``repro.core.engine``, with the same two modes:
   agrees to a tolerance.
 
 Both modes route the §5.1 decision + read-modify-write through
-``repro_torch.kernels.ops.thinning_rmw`` (the CUDA kernel on the card, the
-plain version on the CPU).  The steps update the state **in place** and
-return it.  Nothing on the per-chunk or per-block path waits for the
-device: no ``nonzero``, ``.item()``, boolean indexing or ``unique``.
+``repro_torch.kernels.ops.thinning_rmw_keyed`` (the CUDA kernel on the
+card, the plain version on the CPU): it reads the rows at the keys and
+draws the counter-RNG uniforms itself, so the fast step's decision stage is
+one launch, and in exact mode it also writes each chunk's (or round's)
+rows back, so a chunk is one launch.  The steps update the state **in
+place** and return it.  Nothing on the per-chunk or per-block path waits
+for the device: no ``nonzero``, ``.item()``, boolean indexing or
+``unique``.
 """
 from __future__ import annotations
 
@@ -30,18 +34,15 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import estimators, intensity, thinning
+from repro_torch.core import estimators, intensity
 from repro_torch.core.types import (Event, EngineConfig, ProfileState,
                                     StepInfo, init_state)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import FRESH_SENTINEL, cpu_flush_denormals
+from repro_torch.kernels.ref import cpu_flush_denormals
 
 __all__ = ["init_state", "make_step", "materialize_features"]
 
 _INT32_MAX = 2 ** 31 - 1
-
-# Per-event RNG counter (shared definition in core.thinning).
-_seq_bits = thinning.time_bits
 
 
 def _fused_kw(cfg: EngineConfig) -> dict:
@@ -60,59 +61,6 @@ def _taus_on(taus: tuple, device: torch.device) -> torch.Tensor:
     # one host-to-device copy per (taus, device), not one per step: a copy
     # from pageable host memory would wait for the device
     return torch.tensor(taus, dtype=torch.float32, device=device)
-
-
-def _gather_rows(state: ProfileState, key: torch.Tensor):
-    """Gather one profile row per event, sentinel-mapped for the kernel.
-
-    Returns (last_t, v_f, agg_flat[B, 3T], v_full, last_t_full).
-    """
-    fin = lambda x: torch.where(torch.isfinite(x), x, FRESH_SENTINEL)
-    take = lambda x: torch.index_select(x, 0, key)
-    return (fin(take(state.last_t)), take(state.v_f),
-            take(state.agg).reshape(key.shape[0], -1),
-            take(state.v_full), fin(take(state.last_t_full)))
-
-
-def _fused_rmw(cfg: EngineConfig, taus, state: ProfileState, key, q, t, u,
-               valid):
-    """One fused decision+update pass over gathered rows (whole profile row)."""
-    last_t, v_f, agg_flat, v_full, last_t_full = _gather_rows(state, key)
-    return ops.thinning_rmw(
-        taus, last_t, v_f, agg_flat, q.contiguous(), t.contiguous(),
-        u.contiguous(), valid.to(torch.float32), v_full, last_t_full,
-        **_fused_kw(cfg))
-
-
-def _scatter_where(columns, idx: torch.Tensor, mask: torch.Tensor) -> None:
-    """``dst[idx[mask]] = val[mask]`` for each ``(dst, val)`` in ``columns``.
-
-    torch has no 'drop' scatter mode and boolean indexing waits for the
-    device, so lanes outside ``mask`` are pointed at the first masked lane
-    and carry its value: duplicate indices then write identical bytes.  A
-    spare lane covers the case of no masked lane at all — it rewrites
-    ``dst[idx[0]]`` with its own value.  Masked indices must be distinct.
-    """
-    B = idx.shape[0]
-    lanes = torch.arange(B, device=idx.device)
-    rep = torch.argmax(torch.cat([mask, mask.new_ones(1)]).to(torch.uint8))
-    src = torch.where(mask, lanes, rep)
-    ext_idx = torch.cat([idx, idx[:1]])
-    target = ext_idx[src]
-    for dst, val in columns:
-        ext_val = torch.cat([val, dst[idx[:1]]])
-        dst[target] = ext_val[src]
-
-
-def _scatter_rows(state: ProfileState, key, z, active, new_agg, new_v_f,
-                  t, new_v_full) -> None:
-    """Conflict-free in-place scatter of one round's kernel outputs:
-    persisted columns where ``z``, the control column where ``active``."""
-    n_taus = state.num_taus
-    _scatter_where(((state.agg, new_agg.reshape(-1, n_taus, 3)),
-                    (state.v_f, new_v_f), (state.last_t, t)), key, z)
-    _scatter_where(((state.v_full, new_v_full), (state.last_t_full, t)),
-                   key, active)
 
 
 def _sort_by_key_time(ev: Event):
@@ -168,62 +116,39 @@ def _step_exact(cfg: EngineConfig, impl: str, chunk: int, state: ProfileState,
     dev = state.device
     taus = _taus(cfg, dev)
     ev = ev._replace(key=ev.key.to(torch.int64))
-    ent = ev.key if rng_entity is None else rng_entity
     ev_s, order, round_id = _sort_by_key_time(ev)
+    ent_s = (ev_s.key if rng_entity is None
+             else rng_entity.to(torch.int64)[order])
     B = ev.key.shape[0]
     n_taus = taus.shape[0]
-
-    # Round-invariant bookkeeping: the uniforms depend only on (entity, t),
-    # the inverse permutation only on the batch.
-    u_s = thinning.uniform_for_events(rng, ent[order], _seq_bits(ev_s.t))
     inv = torch.empty_like(order)
     inv[order] = torch.arange(B, device=dev)
 
-    # Per-event outputs in sorted-lane order, with a spare slot B that
-    # takes the writes of inactive lanes.
-    p_o = torch.zeros(B + 1, dtype=torch.float32, device=dev)
-    z_o = torch.zeros(B + 1, dtype=torch.bool, device=dev)
-    lam_o = torch.zeros(B + 1, dtype=torch.float32, device=dev)
-    feats_o = torch.zeros((B + 1, 4 * n_taus), dtype=torch.float32,
-                          device=dev)
-
+    # Per-event outputs in sorted-lane order; each event is active in one
+    # chunk (round), whose launch writes its slot.
+    out = (torch.zeros(B, dtype=torch.bool, device=dev),
+           torch.zeros(B, dtype=torch.float32, device=dev),
+           torch.zeros((B, 4 * n_taus), dtype=torch.float32, device=dev),
+           torch.zeros(B, dtype=torch.float32, device=dev))
+    rmw = functools.partial(ops.thinning_rmw_keyed, taus, state, ev_s.key,
+                            ev_s.q, ev_s.t, rng=rng, ent=ent_s,
+                            write_back=True, out=out, **_fused_kw(cfg))
     if impl == "compact":
+        # each chunk is one round's lanes (B marks an empty slot)
         schedule = _compact_schedule(round_id, ev_s.valid, cfg.exact_rounds,
                                      max(8, min(chunk, B)))
         for lanes in schedule:
-            # each chunk gathers only its (single-round) active lanes
-            active = lanes < B
-            lane = torch.where(active, lanes, 0)
-            key = torch.where(active, ev_s.key[lane], 0)
-            t_lane = ev_s.t[lane]
-            (_, new_v_f, new_agg, z, p, feats, lam, new_v_full, _) = \
-                _fused_rmw(cfg, taus, state, key, ev_s.q[lane], t_lane,
-                           u_s[lane], active)
-            _scatter_rows(state, key, z, active, new_agg, new_v_f, t_lane,
-                          new_v_full)
-            out_lane = torch.where(active, lane, B)
-            p_o[out_lane] = p
-            z_o[out_lane] = z
-            lam_o[out_lane] = lam
-            feats_o[out_lane] = feats
+            rmw(ev_s.valid, lanes=lanes)
     else:  # 'masked' — every round over all B lanes
-        p_o, z_o, lam_o, feats_o = p_o[:B], z_o[:B], lam_o[:B], feats_o[:B]
+        rounds = torch.arange(cfg.exact_rounds, device=dev)
+        active = (round_id[None, :] == rounds[:, None]) & ev_s.valid
         for r in range(cfg.exact_rounds):
-            active = (round_id == r) & ev_s.valid
-            key = torch.where(active, ev_s.key, 0)
-            (_, new_v_f, new_agg, z, p, feats, lam, new_v_full, _) = \
-                _fused_rmw(cfg, taus, state, key, ev_s.q, ev_s.t, u_s,
-                           active)
-            _scatter_rows(state, key, z, active, new_agg, new_v_f, ev_s.t,
-                          new_v_full)
-            p_o = torch.where(active, p, p_o)
-            z_o = z_o | z
-            lam_o = torch.where(active, lam, lam_o)
-            feats_o = torch.where(active[:, None], feats, feats_o)
+            rmw(active[r])
 
-    info = StepInfo(z=z_o[:B][inv] & ev.valid, p=p_o[:B][inv],
-                    lam_hat=lam_o[:B][inv], features=feats_o[:B][inv],
-                    writes=z_o[:B].sum().to(torch.int32))
+    z_o, p_o, feats_o, lam_o = out
+    info = StepInfo(z=z_o[inv] & ev.valid, p=p_o[inv], lam_hat=lam_o[inv],
+                    features=feats_o[inv],
+                    writes=z_o.sum().to(torch.int32))
     return state, info
 
 
@@ -233,15 +158,13 @@ def _step_fast(cfg: EngineConfig, state: ProfileState, ev: Event, rng,
     taus = _taus(cfg, dev)
     num_e = state.num_entities
     key = ev.key.to(torch.int64)
-    ent = key if rng_entity is None else rng_entity
+    ent = None if rng_entity is None else rng_entity.to(torch.int64)
     safe_key = torch.where(ev.valid, key, 0)
 
-    # Decision stage: one fused pass against the batch-start state; only
-    # its decision outputs are used — the fold below subsumes its RMW.
-    u = thinning.uniform_for_events(rng, torch.where(ev.valid, ent, 0),
-                                    _seq_bits(ev.t))
-    (_, _, _, z, p, feats, lam, _, _) = _fused_rmw(
-        cfg, taus, state, safe_key, ev.q, ev.t, u, ev.valid)
+    # Decision stage: one keyed pass against the batch-start state (rows,
+    # uniforms and decisions in one launch); the fold below does the RMW.
+    z, p, feats, lam = ops.thinning_rmw_keyed(
+        taus, state, key, ev.q, ev.t, ev.valid, rng, ent, **_fused_kw(cfg))
 
     # --- closed-form segment fold of persisted contributions -------------
     # Scratch tables have a spare row num_e for the lanes that do not

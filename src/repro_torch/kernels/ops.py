@@ -1,9 +1,12 @@
 """Public wrappers of the port's three kernels (PyTorch).
 
-The counterparts of ``repro.kernels.ops``: ``thinning_rmw`` (the single
-decision + update implementation that ``core/engine.py`` routes both
-execution modes through), ``decay_scan`` (the RG-LRU prefill recurrence)
-and ``flash_attention`` (the local-attention prefill).  Dispatch follows the
+The counterparts of ``repro.kernels.ops``: ``thinning_rmw`` (the fused
+decision + update over gathered rows), ``decay_scan`` (the RG-LRU prefill
+recurrence) and ``flash_attention`` (the local-attention prefill); and
+``thinning_rmw_keyed``, the same fused pass read from the state at the
+events' keys, with the counter-RNG uniforms drawn in the kernel and, in
+exact mode, the rows written back — the one decision + update call that
+``core/engine.py`` routes both execution modes through.  Dispatch follows the
 tensors, not a flag: CUDA tensors go to the hand-written kernels
 (``kernels/thinning_rmw.py``, ``decay_scan.py``, ``flash_attention.py``),
 CPU tensors to the plain versions (``kernels/ref.py``).  There is no
@@ -16,9 +19,9 @@ Two contracts every caller of ``thinning_rmw`` inherits from the reference:
   every valid event, the persisted columns only on ``z``.  Decision-only
   callers may omit them (fresh rows); callers that persist state must
   scatter both returned columns back.
-* **Functional RMW.**  The wrapper reads gathered rows and returns new
-  rows; it never writes its inputs.  In-place state updates happen in the
-  engine's scatters.
+* **Functional RMW.**  ``thinning_rmw`` reads gathered rows and returns
+  new rows; it never writes its inputs.  ``thinning_rmw_keyed`` with
+  ``write_back=True`` is the one call that updates the state in place.
 """
 from __future__ import annotations
 
@@ -58,6 +61,41 @@ def thinning_rmw(taus, last_t, v_f, agg_flat, q, t, u, valid,
     if device.type == "cpu":
         return ref.thinning_rmw_ref(*args, **kw)
     raise ValueError(f"thinning_rmw has no implementation for {device}")
+
+
+def thinning_rmw_keyed(taus, state, key, q, t, valid, rng, ent=None, *,
+                       write_back: bool = False, lanes=None, out=None,
+                       h: float, budget: float, alpha: float = 0.0,
+                       policy: str = "pp", fixed_rate: float = 0.1,
+                       mu_tau_index: int = 2, min_p: float = 1e-6):
+    """The fused pass over the state rows at the events' keys.
+
+    ``state`` a ``ProfileState``; ``key``/``ent`` int64 [L] (``ent``, the
+    counter-RNG entity, defaults to ``key``); ``q``/``t`` float32 [L];
+    ``valid`` bool [L]; ``rng`` a key.  Decision only: returns ``(z, p,
+    features, lam)``.  ``write_back=True`` (active keys distinct): row
+    ``i`` is event ``lanes[i]`` (``>= L``: empty), the updated rows are
+    written into ``state`` and the decisions into slot ``lanes[i]`` of
+    ``out = (z, p, features, lam)``.  See
+    ``repro_torch.kernels.ref.thinning_rmw_keyed_ref`` for the contract.
+    """
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}; expected one of "
+                         f"{POLICIES}")
+    if write_back and out is None:
+        raise ValueError("write_back=True needs out=(z, p, features, lam)")
+    if not write_back and (lanes is not None or out is not None):
+        raise ValueError("lanes= and out= are for write_back=True")
+    kw = dict(write_back=write_back, lanes=lanes, out=out, h=h,
+              budget=budget, alpha=alpha, policy=policy,
+              fixed_rate=fixed_rate, mu_tau_index=mu_tau_index, min_p=min_p)
+    args = (taus, state, key, q, t, valid, rng, ent)
+    if key.device.type == "cuda":
+        return _tr.thinning_rmw_keyed_cuda(*args, **kw)
+    if key.device.type == "cpu":
+        return ref.thinning_rmw_keyed_ref(*args, **kw)
+    raise ValueError(f"thinning_rmw_keyed has no implementation for "
+                     f"{key.device}")
 
 
 def decay_scan(a, u, h0=None):

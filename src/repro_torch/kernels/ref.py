@@ -22,6 +22,14 @@ once.  Three torch habits would break that and are designed out here:
 The CUDA kernel (``csrc/thinning_rmw.cu``) computes the same function and
 is held bitwise against this version on the CPU.  On a CUDA tensor this
 version runs too (``chip_smoke.py`` times it), but without flush-to-zero.
+
+``thinning_rmw_keyed_ref`` is the plain version of the keyed kernel: the
+steps the JAX package leaves to XLA around its kernel — the counter-RNG
+uniforms (``kernels/threefry.py``), the row gather (``gather_rows``) and, in
+exact mode, the conflict-free scatter back into the state — composed around
+``thinning_rmw_ref``.  ``gather_cuda_calls`` counts ``gather_rows`` calls on
+CUDA tensors, so a run can show that its main path left the gather to the
+kernel.
 """
 from __future__ import annotations
 
@@ -31,11 +39,14 @@ import threading
 import torch
 
 from repro_torch.kernels.detmath import det_exp
+from repro_torch.kernels.threefry import time_bits, uniform_for_events
 
 POLICIES = ("pp", "pp_vr", "full", "fixed", "unfiltered")
 
 # Sentinel for a never-persisted row (finite: -inf breaks 0*inf masking).
 FRESH_SENTINEL = -1e38
+
+gather_cuda_calls = 0   # gather_rows calls on CUDA tensors
 
 
 def _cdiv(c: float, x: torch.Tensor) -> torch.Tensor:
@@ -168,6 +179,82 @@ def _thinning_rmw(taus, last_t, v_f, agg_flat, q, t, u, valid, v_full,
     new_last_t_full = torch.where(valid_b, t, last_t_full)
     return (new_last_t, new_v_f, new_agg.reshape(B, 3 * T), z, p, feats,
             lam, new_v_full, new_last_t_full)
+
+
+def gather_rows(state, key: torch.Tensor):
+    """One profile row per event, sentinel-mapped for the fused pass.
+
+    ``state``: the five columns ``(last_t [N], v_f [N], agg [N, T, 3],
+    v_full [N], last_t_full [N])`` (a ``ProfileState``); ``key``: int64
+    [B].  A non-finite ``last_t``/``last_t_full`` (a never-persisted row)
+    becomes ``FRESH_SENTINEL``.  Returns (last_t, v_f, agg_flat[B, 3T],
+    v_full, last_t_full).
+    """
+    global gather_cuda_calls
+    if key.is_cuda:
+        gather_cuda_calls += 1
+    last_t, v_f, agg, v_full, last_t_full = state
+    fin = lambda x: torch.where(torch.isfinite(x), x, FRESH_SENTINEL)
+    take = lambda x: torch.index_select(x, 0, key)
+    return (fin(take(last_t)), take(v_f), take(agg).reshape(key.shape[0], -1),
+            take(v_full), fin(take(last_t_full)))
+
+
+def thinning_rmw_keyed_ref(taus, state, key, q, t, valid, rng, ent=None, *,
+                           write_back: bool = False, lanes=None, out=None,
+                           **kw):
+    """Plain keyed fused pass: uniforms, gather, ``thinning_rmw_ref``.
+
+    ``state``: the five state columns (a ``ProfileState``); ``key``/``ent``
+    int64 [L] (``ent``, the counter-RNG entity, defaults to ``key``);
+    ``q``/``t`` float32 [L]; ``valid`` bool [L]; ``rng`` a key.  Row ``i``
+    of the pass is event ``lanes[i]`` (event ``i`` when ``lanes`` is None);
+    ``lanes[i] >= L`` marks an empty row.  An event is active when it is
+    valid and its row is not empty; an inactive one reads table row 0 and
+    draws its uniform for entity 0 (``core/engine.py`` of the JAX package
+    masks its keys the same way).  ``kw``: the ``thinning_rmw`` parameters.
+
+    Decision only (``write_back=False``, no ``lanes``): returns
+    ``(z, p, features, lam)`` per event and leaves the state alone.
+
+    ``write_back=True``: active keys must be distinct.  Where ``z`` the
+    persisted columns (``agg``, ``v_f``, ``last_t = t``), where active the
+    control column (``v_full``, ``last_t_full = t``) are written into the
+    state in place, and each active event's ``(z, p, features, lam)`` into
+    slot ``lanes[i]`` of ``out`` (four tensors of L rows, updated in place
+    and returned).  Inactive rows write nothing.
+    """
+    L = key.shape[0]
+    if lanes is None:
+        lane = torch.arange(L, device=key.device)
+        active = valid
+    else:
+        inside = lanes < L
+        lane = torch.where(inside, lanes, 0)
+        active = inside & valid[lane]
+    ent = key if ent is None else ent
+    row = torch.where(active, key[lane], 0)
+    t_l = t[lane]
+    u = uniform_for_events(rng, torch.where(active, ent[lane], 0),
+                           time_bits(t_l))
+    last_t, v_f, agg_flat, v_full, last_t_full = gather_rows(state, row)
+    (_, new_v_f, new_agg, z, p, feats, lam, new_v_full, _) = thinning_rmw_ref(
+        taus, last_t, v_f, agg_flat, q[lane], t_l, u,
+        active.to(torch.float32), v_full, last_t_full, **kw)
+    if not write_back:
+        return z, p, feats, lam
+    s_last_t, s_v_f, s_agg, s_v_full, s_last_t_full = state
+    wrote = row[z]
+    s_agg[wrote] = new_agg[z].reshape(-1, *s_agg.shape[1:])
+    s_v_f[wrote] = new_v_f[z]
+    s_last_t[wrote] = t_l[z]
+    seen = row[active]
+    s_v_full[seen] = new_v_full[active]
+    s_last_t_full[seen] = t_l[active]
+    slot = lane[active]
+    for dst, val in zip(out, (z, p, feats, lam)):
+        dst[slot] = val[active]
+    return out
 
 
 def decay_scan_ref(a: torch.Tensor, u: torch.Tensor,

@@ -6,15 +6,17 @@ one; they import no JAX, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The kernel is held bitwise to its plain PyTorch version on the CPU, which
-``test_torch_kernels.py`` holds bitwise to the JAX reference; the engine on
-the card is held bitwise to the engine on the CPU in exact mode.
+``test_torch_kernels.py`` (rows in) and ``test_torch_keyed.py`` (keys in)
+hold bitwise to the JAX reference; the engine on the card is held bitwise
+to the engine on the CPU in exact mode.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import (EngineConfig, init_state, prng_key,  # noqa: E402
+from repro_torch.core import (EngineConfig, ProfileState,  # noqa: E402
+                              init_state, prng_key,
                               run_stream)
 from repro_torch.kernels import ops                          # noqa: E402
 from repro_torch.kernels import thinning_rmw as trmw          # noqa: E402
@@ -39,6 +41,53 @@ def trmw_inputs(rng, B, T):
     last_t_full = f32(np.where(fresh_full, -1e38, rng.uniform(0, 1.2e4, B)))
     v_full = f32(np.where(fresh_full, 0, rng.uniform(0, 80, B)))
     return taus, last_t, v_f, agg, q, t, u, valid, v_full, last_t_full
+
+
+def keyed_inputs(rng, N, L, T, *, distinct=False, big_ent=False):
+    """State tables and events for the keyed pass, as numpy arrays.
+
+    The table has never-persisted rows (``-inf``) and NaN times in both
+    columns; keys repeat and include N - 1.  ``distinct``: the valid
+    events' keys are distinct (the write-back contract), invalid events
+    carry key 0, and one valid event has key 0 too.  ``big_ent``: a
+    counter-RNG entity other than the key, at or above 2^31.
+    """
+    f32 = lambda x: np.asarray(x, np.float32)
+    taus = f32(np.geomspace(60, 86400, T))
+    fresh = rng.random(N) < 0.3
+    nan = rng.random(N) < 0.05
+    last_t = f32(np.where(fresh, -np.inf, rng.uniform(0, 1e4, N)))
+    last_t[nan & ~fresh] = np.nan
+    v_f = f32(np.where(fresh, 0, rng.uniform(0, 50, N)))
+    agg = f32(rng.uniform(0, 10, (N, T, 3))) * (~fresh[:, None, None])
+    fresh_full = fresh & (rng.random(N) < 0.5)
+    last_t_full = f32(np.where(fresh_full, -np.inf,
+                               rng.uniform(0, 1.2e4, N)))
+    last_t_full[rng.random(N) < 0.05] = np.nan
+    v_full = f32(np.where(fresh_full, 0, rng.uniform(0, 80, N)))
+    valid = rng.random(L) < 0.85
+    if distinct:
+        key = rng.choice(np.arange(1, N - 1), L, replace=False)
+        key[~valid] = 0
+        valid[L // 2] = True
+        key[L // 2] = 0
+    else:
+        key = rng.integers(0, N, L)
+        key[1::7] = key[0]
+    valid[-1] = True
+    key[-1] = N - 1
+    ent = rng.integers(2 ** 31, 2 ** 32, L) if big_ent else key
+    q = f32(rng.lognormal(3, 1, L))
+    t = f32(rng.uniform(1e4, 2e4, L))
+    return ((taus, last_t, v_f, agg, v_full, last_t_full),
+            (key.astype(np.int64), ent.astype(np.int64), q, t, valid))
+
+
+def keyed_lanes(rng, L):
+    """A chunk's lane index: every event once, in shuffled order, with
+    empty slots (L) among them."""
+    lanes = np.concatenate([rng.permutation(L), np.full(L // 8, L)])
+    return rng.permutation(lanes).astype(np.int64)
 
 
 @pytest.fixture
@@ -96,12 +145,13 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
     run = lambda dev: run_stream(cfg, init_state(n_keys, 3, device=dev),
                                  keys, qs, ts, batch=batch, mode=mode,
                                  rng=prng_key(7))
-    launches = trmw.launches
+    launches = trmw.keyed_launches
     (gs, gi), (gs2, _), (cs, ci) = (run(cuda_device), run(cuda_device),
                                     run("cpu"))
     n_blocks = -(-n // batch)
-    if mode == "fast":
-        assert trmw.launches - launches == 2 * n_blocks
+    # one keyed launch per fast block, per exact chunk (1 + rounds a block)
+    per_block = 1 if mode == "fast" else 1 + rounds
+    assert trmw.keyed_launches - launches == 2 * n_blocks * per_block
     agree = n if mode == "exact" else batch
     for name in ("z", "p", "lam_hat"):
         assert _bitwise(getattr(gi, name)[:agree],
@@ -115,3 +165,61 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
         else:
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
                                        rtol=1e-5, atol=0, err_msg=name)
+
+
+def _keyed_case(device, T, policy, write_back, big_ent, seed):
+    """The keyed pass on ``device`` over one generated case; returns the
+    outputs and the state afterwards, on the CPU."""
+    rng = np.random.default_rng(seed)
+    (taus, *table), (key, ent, q, t, valid) = keyed_inputs(
+        rng, 5000, 700, T, distinct=write_back, big_ent=big_ent)
+    lanes = keyed_lanes(rng, 700)
+    dev = lambda x: torch.tensor(x, device=device)
+    state = ProfileState(*(dev(x) for x in table))
+    kw = dict(h=3600.0, budget=0.001, alpha=1.5, policy=policy,
+              fixed_rate=0.3, mu_tau_index=min(2, T - 1))
+    out = None
+    if write_back:
+        out = (torch.zeros(700, dtype=torch.bool, device=device),
+               torch.full((700,), -1.0, device=device),
+               torch.full((700, 4 * T), -1.0, device=device),
+               torch.full((700,), -1.0, device=device))
+    got = ops.thinning_rmw_keyed(
+        dev(taus), state, dev(key), dev(q), dev(t), dev(valid), (7, 42),
+        dev(ent), write_back=write_back, out=out,
+        lanes=dev(lanes) if write_back else None, **kw)
+    return [x.cpu() for x in got], [x.cpu() for x in state]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write_back", [False, True])
+@pytest.mark.parametrize("T", [2, 3, 6, 17])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_keyed_kernel_bitwise_vs_plain_cpu(cuda_device, write_back, T,
+                                           policy):
+    """Both modes, all 9 outputs' worth (decisions and, with write-back,
+    the state in place), bitwise; T = 17 takes the taus past the lanes'
+    registers.  The write-back chunk has empty slots, invalid events on key
+    0 and one valid event on key 0 (the padding lanes' key)."""
+    seed = [T, POLICIES.index(policy), write_back]
+    launches = trmw.keyed_launches
+    got, got_state = _keyed_case(cuda_device, T, policy, write_back,
+                                 T % 2 == 0, seed)
+    torch.cuda.synchronize()
+    assert trmw.keyed_launches == launches + 1
+    want, want_state = _keyed_case("cpu", T, policy, write_back, T % 2 == 0,
+                                   seed)
+    for g, w in zip(got + got_state, want + want_state):
+        assert _bitwise(g, w)
+
+
+@pytest.mark.cuda
+def test_keyed_kernel_refuses_bad_inputs(cuda_device):
+    state = init_state(16, 2, device=cuda_device)
+    taus = torch.tensor([60.0, 3600.0], device=cuda_device)
+    key = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    f = torch.zeros(4, device=cuda_device)
+    valid = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="key"):
+        trmw.thinning_rmw_keyed_cuda(taus, state, key, f, f, valid, (0, 0),
+                                     h=600.0, budget=0.01)

@@ -13,8 +13,10 @@ torch = pytest.importorskip("torch")
 import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
 
+from jax.extend.random import threefry_2x32                  # noqa: E402
 from repro.core import thinning as jthin                     # noqa: E402
 from repro_torch.core import thinning                        # noqa: E402
+from repro_torch.kernels import threefry                     # noqa: E402
 
 SEEDS = [0, 7, 12345, 2**31 - 1, -1]
 
@@ -47,6 +49,36 @@ def test_uniforms_bitwise_vs_jax(seed):
         thinning.time_bits(torch.from_numpy(t))).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert got.min() >= 0.0 and got.max() < 1.0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry2x32_bitwise_vs_jax(seed):
+    """The block function itself (moved to ``kernels/threefry.py``, the
+    plain version of the kernel's in-kernel draw) against JAX's."""
+    rng = np.random.default_rng(seed & 0xFFFF)
+    k = rng.integers(0, 2**32, 2, dtype=np.uint32)
+    x = rng.integers(0, 2**32, 2000, dtype=np.uint32)
+    want = np.asarray(threefry_2x32(jnp.asarray(k), jnp.asarray(x)))
+    xs = torch.from_numpy(x.astype(np.int64))
+    got = threefry.threefry2x32(int(k[0]), int(k[1]), xs[:1000], xs[1000:])
+    np.testing.assert_array_equal(torch.cat(got).numpy(),
+                                  want.astype(np.int64))
+
+
+def test_rng_keeps_its_old_import_path():
+    """``core.thinning`` re-exports the RNG that moved to
+    ``kernels.threefry``: the same objects under both names."""
+    for name in ("prng_key", "as_key", "threefry2x32", "time_bits",
+                 "uniform_for_events"):
+        assert getattr(thinning, name) is getattr(threefry, name), name
+
+
+def test_uniforms_count_cuda_calls_only():
+    """``cuda_calls`` counts calls on CUDA tensors; CPU calls leave it."""
+    before = threefry.cuda_calls
+    thinning.uniform_for_events((0, 1), torch.arange(4),
+                                thinning.time_bits(torch.zeros(4)))
+    assert threefry.cuda_calls == before
 
 
 @pytest.mark.parametrize("policy", ["naive", "variance_aware", "fixed"])
