@@ -7,8 +7,8 @@ It builds the port's three CUDA kernels from this checkout's sources
 (``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
 for ``sm_90a``, all started together, into ``build/``), checks with
 ``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
-(tensor-core) instructions, then runs six phases; any failure raises and
-the script exits non-zero.
+(tensor-core) instructions, then runs seven phases; any failure raises
+and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
    version on the CPU (which the CPU tests hold bitwise to the JAX
@@ -67,6 +67,23 @@ the script exits non-zero.
    a = 1 and amplifies the one-ulp differences of the card's and the
    CPU's ``exp``.
 
+7. Scoring (it runs after phase 3, on phase 2's stream): the paper's
+   pipeline through ``serving.pipeline.ScoringPipeline`` at full size
+   (``ProfileSpec()``'s six windows, ``kde_bandwidth=3600``, Lambda*h =
+   0.1, ``pp``, fast mode, batch 4096, flush groups of 4 blocks, a
+   seeded scorer of hidden width 64 scoring all 2,000,000 events):
+   (a) dense with a memory sink; (b) a resident set of 100,000 slots
+   (12.5 % of the keys), serial; (c) the same at ``pipeline_depth=2``;
+   (b) must equal (a) and (c) must equal (b) bitwise in decisions,
+   features, scores and store bytes, with evictions and rehydrations in
+   the run; (d) ``run_restart_demo`` on the durable backend with the same
+   budget: the scores recovered from the reopened stores must equal the
+   live ones bitwise over every key the stream touched; (e) the per-event
+   ``FeatureWorker`` on the card over the first 16,384 events, exact
+   mode: its store bytes must equal an exact ``run_stream`` + sink's, with
+   one rows-entry launch an event and no uniform drawn on the card.  The
+   keyed kernel must launch once per block in (a)-(c).
+
 After phase 6 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
 its default dispatch picked is named (matched by the kernels it
@@ -117,6 +134,8 @@ BF16_RTOL, BF16_FLOOR = 2.0 ** -6, 2.0 ** -7   # of |want|, of its row's max
 DECODE_REL_L2 = 0.1
 BLOCK_TOL = {"rec": 1e-3, "attn": 1e-4}
 BLOCK_S = 2304
+N_SLOTS, SINK_GROUP, SCORER_HIDDEN = 100_000, 4, 64
+WORKER_EVENTS = 16_384
 
 
 def check(ok: bool, what: str) -> None:
@@ -486,17 +505,18 @@ def reset_counts():
     threefry.cuda_calls = ref.gather_cuda_calls = 0
 
 
-def check_no_plain_steps(what):
-    """Fail if the plain uniforms, the plain gather or the rows entry ran
-    on the card since ``reset_counts``."""
+def check_no_plain_steps(what, rows_entry=0):
+    """Fail if the plain uniforms or the plain gather ran on the card since
+    ``reset_counts``, or the rows entry launched other than ``rows_entry``
+    times (only the per-event worker launches it)."""
     from repro_torch.kernels import ref, threefry
     from repro_torch.kernels import thinning_rmw as trmw
 
     plain = {"uniform_for_events": threefry.cuda_calls,
-             "gather_rows": ref.gather_cuda_calls,
-             "thinning_rmw_rows_entry": trmw.launches}
-    check(not any(plain.values()), f"{what} ran plain steps on the card: "
-          f"{plain}")
+             "gather_rows": ref.gather_cuda_calls}
+    check(not any(plain.values()) and trmw.launches == rows_entry,
+          f"{what} ran plain steps on the card: {plain}, rows entry "
+          f"{trmw.launches} launches for {rows_entry} worker events")
 
 
 def phase_stream(device, stream):
@@ -636,6 +656,169 @@ def phase_parity(device, stream):
     emit(parity_fast={"events": PREFIX, "runs_identical": True,
                       "step_decisions_bitwise": True,
                       "step_state_max_rel_diff": rel})
+
+
+def bitwise_same_run(a, b, what):
+    """Fail unless two StepInfo-like runs agree bit for bit."""
+    for name in ("z", "p", "lam_hat", "features"):
+        check(bitwise_equal(getattr(a, name), getattr(b, name)),
+              f"{what}: {name} differs")
+
+
+def phase_scoring(device, stream):
+    """Phase 7: the scoring pipeline at full size — dense, resident
+    (serial and pipelined), the durable restart and the worker oracle."""
+    import tempfile
+
+    from repro_torch.core import EngineConfig, init_state, prng_key, run_stream
+    from repro_torch.features.spec import ProfileSpec
+    from repro_torch.kernels import threefry
+    from repro_torch.kernels import thinning_rmw as trmw
+    from repro_torch.serving import pipeline
+    from repro_torch.streaming.kvstore import KVStore
+    from repro_torch.streaming.persistence import WriteBehindSink
+    from repro_torch.streaming.residency import ResidencyMap
+    from repro_torch.streaming.worker import FeatureWorker
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    n = len(stream.key)
+    n_blocks = -(-n // BATCH)
+    span = BATCH * SINK_GROUP
+    floor = max(len(np.unique(stream.key[i:i + span]))
+                for i in range(0, n, span))
+    spec = ProfileSpec(kde_bandwidth=3600.0, write_budget_per_min=0.1 / 60,
+                       policy="pp")
+    pipe = pipeline.ScoringPipeline.build(spec, N_KEYS, mode="fast",
+                                          device=device)
+    pipe.scorer = pipeline.init_scorer(torch.Generator().manual_seed(0),
+                                       spec.feature_dim,
+                                       hidden=SCORER_HIDDEN, device=device)
+    emit(scoring_setup={"events": n, "keys": N_KEYS, "batch": BATCH,
+                        "sink_group": SINK_GROUP, "slots": N_SLOTS,
+                        "state_mb_resident": N_SLOTS * 22 * 4 / 1e6,
+                        "capacity_floor": floor, "scorer_hidden":
+                        SCORER_HIDDEN, "policy": "pp", "mode": "fast"})
+    reset_counts()                          # the scoring path starts here
+
+    def drive(step, slots=None, depth=1):
+        sink = pipe.make_sink()
+        rmap = ResidencyMap(N_KEYS, slots) if slots else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = trmw.keyed_launches
+        t0 = time.perf_counter()
+        _, info = pipe.process_stream(
+            pipe.init(residency=slots), stream.key, stream.q, stream.t,
+            rng=prng_key(0), batch_per_shard=BATCH, sink=sink,
+            residency=[rmap] if rmap else None, sink_group=SINK_GROUP,
+            pipeline_depth=depth)
+        scores = pipeline.score(pipe.scorer, info.features)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        snap = sink.flush()
+        wall = time.perf_counter() - t0
+        stored = _store_bytes(sink)
+        sink.close()
+        launched = trmw.keyed_launches - before
+        check(launched == n_blocks,
+              f"{step}: {launched} keyed launches for {n_blocks} blocks")
+        check(scores.shape == (n,) and bool(torch.isfinite(scores).all()),
+              f"{step}: scores not finite or of the wrong shape")
+        rec = {"step": step, "slots": slots, "pipeline_depth": depth,
+               "events": n, "blocks": n_blocks, "kernel_launches": launched,
+               "writes": int(info.writes), "puts": snap["puts"],
+               "puts_per_event": snap["puts"] / n,
+               "durable_gets": snap["gets"],
+               "gets_per_event": snap["gets"] / n,
+               "events_per_s": n / wall, "wall_s": wall,
+               "device_done_s": t_dev,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if rmap is not None:
+            rec["residency"] = rmap.stats.snapshot()
+            for k in ("host_pack_s", "device_wait_s", "overlap_s",
+                      "overlap_frac", "parked_reads"):
+                rec[k] = snap[k]
+            check(rmap.stats.splits == 0, f"{step}: groups were split")
+        emit(scoring=rec)
+        return info, scores, stored, rmap
+
+    dense, dense_scores, dense_bytes, _ = drive("a_dense")
+    res, res_scores, res_bytes, rmap = drive("b_resident", N_SLOTS)
+    bitwise_same_run(dense, res, "resident vs dense")
+    check(bitwise_equal(dense_scores, res_scores), "resident scores differ")
+    check(res_bytes == dense_bytes and len(res_bytes) > 0,
+          "resident store bytes differ from dense")
+    check(rmap.stats.evictions > 0 and rmap.stats.misses > N_SLOTS,
+          f"the resident run did not churn: {rmap.stats.snapshot()}")
+    del dense, dense_scores
+    piped, piped_scores, piped_bytes, rmap2 = drive("c_pipelined", N_SLOTS,
+                                                    depth=2)
+    bitwise_same_run(res, piped, "depth 2 vs depth 1")
+    check(bitwise_equal(res_scores, piped_scores), "depth 2 scores differ")
+    check(piped_bytes == res_bytes, "depth 2 store bytes differ")
+    check(rmap2.stats.snapshot() == rmap.stats.snapshot(),
+          "depth 2 residency counters differ")
+    del res, res_scores, piped, piped_scores
+
+    with tempfile.TemporaryDirectory() as store_dir:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        demo = pipeline.run_restart_demo(
+            spec, N_KEYS, stream.key, stream.q, stream.t, mode="fast",
+            batch_per_shard=BATCH, rng=prng_key(0), residency=N_SLOTS,
+            sink_group=SINK_GROUP, backend="durable",
+            store_dir=os.path.join(store_dir, "stores"), device=device)
+        wall = time.perf_counter() - t0
+    live, recovered = demo["scores_live"], demo["scores_recovered"]
+    check(live.shape == recovered.shape == (demo["keys_scored"],)
+          and np.array_equal(live.view(np.uint32), recovered.view(np.uint32))
+          and bool(np.isfinite(live).all()),
+          "restart: recovered scores differ from the live ones")
+    emit(scoring={"step": "d_restart", "backend": "durable",
+                  "slots": N_SLOTS, "events": n,
+                  "keys_scored": demo["keys_scored"],
+                  "writes": demo["writes"], "puts": demo["sink"]["puts"],
+                  "puts_per_event": demo["sink"]["puts"] / n,
+                  "durable_gets": demo["sink"]["gets"],
+                  "gets_per_event": demo["sink"]["gets"] / n,
+                  "wall_s": wall, "recovery": demo["recovery"],
+                  "recovered_bitwise": True,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated(device)
+                  / 1e9})
+
+    keys, qs, ts = (x[:WORKER_EVENTS] for x in (stream.key, stream.q,
+                                                stream.t))
+    rounds = max(int(np.bincount(keys[i:i + EXACT_BATCH]).max())
+                 for i in range(0, WORKER_EVENTS, EXACT_BATCH))
+    cfg = spec.engine_config(exact_rounds=rounds)
+    sink = WriteBehindSink(cfg, n_partitions=4, device=device)
+    run_stream(cfg, init_state(N_KEYS, len(cfg.taus), device=device), keys,
+               qs, ts, batch=EXACT_BATCH, mode="exact", rng=prng_key(7),
+               sink=sink)
+    sink.flush()
+    sink.close()
+    worker = FeatureWorker(cfg, KVStore(), rng=prng_key(7), device=device)
+    before = trmw.launches
+    t0 = time.perf_counter()
+    for k, q, t in zip(keys.tolist(), qs.tolist(), ts.tolist()):
+        worker.process(k, q, t)
+    wall = time.perf_counter() - t0
+    rows_launches = trmw.launches - before
+    check(rows_launches == WORKER_EVENTS,
+          f"worker: {rows_launches} rows-entry launches for "
+          f"{WORKER_EVENTS} events")
+    sink_bytes = _store_bytes(sink)
+    check(worker.store.data == sink_bytes and len(sink_bytes) > 0,
+          "worker store bytes differ from the exact sink's")
+    check(threefry.cuda_calls == 0, "the worker drew uniforms on the card")
+    emit(scoring={"step": "e_worker", "events": WORKER_EVENTS,
+                  "mode": "exact", "exact_rounds": rounds,
+                  "rows_entry_launches": rows_launches,
+                  "writes": worker.metrics.writes,
+                  "rows_stored": len(sink_bytes), "bytes_equal_sink": True,
+                  "events_per_s": WORKER_EVENTS / wall, "wall_s": wall})
+    check_no_plain_steps("the scoring phase", rows_entry=WORKER_EVENTS)
+    return {"keyed": trmw.keyed_launches, "rows_entry": rows_launches}
 
 
 def window_pairs(Sq, Skv, causal, window):
@@ -1006,6 +1189,9 @@ def main() -> int:
                    "gen_s": time.perf_counter() - t0})
     launches = phase_stream(device, stream)
     phase_parity(device, stream)
+    t0 = time.perf_counter()
+    scoring = phase_scoring(device, stream)
+    emit(scoring_phase_s=time.perf_counter() - t0)
     attn_worst, serving_times = phase_serving_kernels(device)
     serve_launches = phase_serve(device)
     phase_blocks(device)
@@ -1025,6 +1211,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/thinning_rmw.cu",
         "replaces": "src/repro/kernels/thinning_rmw.py:36",
         "launches": launches, "max_abs_err": worst,
+        "launches_scoring_keyed": scoring["keyed"],
+        "launches_scoring_rows_entry": scoring["rows_entry"],
         "ms": t4096["ms"], "plain_ms": t4096["plain_ms"],
         "bound_ms": t4096["bound_ms"], "bound_by": t4096["bound_by"],
         "library_ms": None,

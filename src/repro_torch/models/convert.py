@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.types import resolve_device
 from repro_torch.models.backbone import layer_plan, model_specs
 from repro_torch.models.common import Params, Spec
 
@@ -39,9 +40,11 @@ def _index(tree, g: int):
     return np.asarray(tree)[g]
 
 
-def from_jax_params(cfg, params_np, device="cpu") -> Params:
+def from_jax_params(cfg, params_np, device=None) -> Params:
     """The JAX tree ``{embed, prefix, groups, suffix, final_norm}`` (numpy
-    leaves) as the port's ``{embed, layers, final_norm}``."""
+    leaves) as the port's ``{embed, layers, final_norm}``, on ``device``
+    (``cuda:0`` unless named, like every entry point)."""
+    device = resolve_device(device)
     plan = layer_plan(cfg)
     if len(params_np["prefix"]):
         raise ValueError("the hybrid plan has no prefix layers")

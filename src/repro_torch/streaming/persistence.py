@@ -18,20 +18,23 @@ serialize and land the thinned rows of completed flush groups:
    last-write-wins, packs them with the vectorized SerDe and fans each
    partition's slice out to that partition's store worker;
 4. ``submit_read`` queues batched ``multi_get``s through the same FIFO
-   pipeline, so a read observes every flush submitted before it.
+   pipeline, so a read observes every flush submitted before it — the
+   ordering the bounded-residency drivers (``core.stream.run_stream(
+   residency=...)``) rehydrate evicted keys through.  Two more lanes
+   serve them: the unordered lane (``ordered=False``) for first-touch
+   keys no flush can hold, and the epoch-gated lane (``stage_epoch`` +
+   ``staged=True``) with which the pipelined drivers order a read behind
+   a flush that is not submitted yet.
 
 The full-stream control column (``v_full``/``last_t_full``) is persisted
 only under the full-stream policies ('full'/'unfiltered'); thinning
 policies store the fresh (0.0, -inf) column and recovery restarts the
 control estimate cold.
 
-Not ported yet (ROADMAP.md, queue 1 item 7): the JAX sink's staged-epoch
-read lane, unordered reads and host/device overlap meter, which serve the
-pipelined and bounded-residency drivers, and its L2 demote/probe calls,
-which serve residency and cold scoring.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -111,10 +114,27 @@ class SinkStats:
     retry_wait_s: float = 0.0
     flush_errors: int = 0
     degraded_flushes: int = 0
-    # host-RAM L2 tier (``l2=`` knob): read rows answered from packed host
-    # bytes instead of durable gets (synced from the caches at
-    # ``snapshot``)
+    # host-RAM L2 tier (``l2=`` knob): hydration-read rows answered from
+    # packed host bytes instead of durable gets, and slot evictions
+    # demoted into the cache (synced from the caches at ``snapshot``)
     l2_hits: int = 0
+    l2_demotions: int = 0
+    # host/device time split (synced from the sink's ``_OverlapMeter`` at
+    # ``snapshot``): ``host_pack_s`` is driver-side group planning+packing
+    # (the drivers wrap it in ``overlap.host()``), ``device_wait_s`` is
+    # time the flush dispatcher spent blocked materializing device arrays
+    # — the sink-gather sync points — and ``overlap_s`` is the wall-clock
+    # intersection of the two.  ``overlap_frac = overlap_s/host_pack_s``:
+    # the fraction of host pack work that was hidden under device waits.
+    host_pack_s: float = 0.0
+    device_wait_s: float = 0.0
+    overlap_s: float = 0.0
+    overlap_frac: float = 0.0
+    # epoch-gated read lane (pipelined drivers): staged flush epochs and
+    # reads that had to park waiting for their epoch to land
+    epochs_staged: int = 0
+    staged_reads: int = 0
+    parked_reads: int = 0
     # measured-IO admission (``max_unsynced_bytes=``): submits that hit
     # the outstanding-unsynced-WAL-bytes watermark (the wait itself lands
     # in ``submit_wait_s``), and the high-water mark of outstanding bytes
@@ -130,13 +150,71 @@ class SinkStats:
         return dataclasses.asdict(self)
 
 
+class _OverlapMeter:
+    """Wall-clock intersection of two activity channels (host, device).
+
+    ``host()`` wraps driver-side group planning/packing; ``device()``
+    wraps the flush dispatcher's device-array materialization waits.  The
+    meter accumulates each channel's total busy time plus the time both
+    were active *simultaneously* — a direct measurement of how much host
+    pack work the pipeline hid under device time, not an inference from
+    wall-clock arithmetic.  Each channel is non-reentrant and owned by
+    one thread at a time (driver/prep thread vs dispatcher thread), which
+    the sink's thread model already guarantees.
+    """
+
+    HOST, DEVICE = 0, 1
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._since: List[Optional[float]] = [None, None]
+        self._both: float = 0.0
+        self.total = [0.0, 0.0]
+        self.overlap_s = 0.0
+
+    def begin(self, ch: int) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            self._since[ch] = now
+            if self._since[1 - ch] is not None:
+                self._both = now
+
+    def end(self, ch: int) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            since = self._since[ch]
+            if since is None:  # pragma: no cover - defensive
+                return
+            self.total[ch] += now - since
+            self._since[ch] = None
+            if self._since[1 - ch] is not None:
+                self.overlap_s += now - self._both
+
+    @contextlib.contextmanager
+    def host(self):
+        self.begin(self.HOST)
+        try:
+            yield
+        finally:
+            self.end(self.HOST)
+
+    @contextlib.contextmanager
+    def device(self):
+        self.begin(self.DEVICE)
+        try:
+            yield
+        finally:
+            self.end(self.DEVICE)
+
+
 class ReadTicket:
-    """Future-like handle for an ordered read.
+    """Future-like handle for an ordered hydration read.
 
     ``WriteBehindSink.submit_read`` routes the requested keys through the
     same FIFO pipeline as the flush blocks (dispatcher queue, then the
     owning partition's worker queue), so the batched ``multi_get`` executes
-    *after* every flush submitted earlier.  ``result()`` blocks until every
+    *after* every flush submitted earlier — the write-ordering guarantee
+    residency hydration relies on.  ``result()`` blocks until every
     partition's slice has landed and returns rows aligned with the
     requested key order (``None`` for absent keys).
     """
@@ -182,7 +260,8 @@ class WriteBehindSink:
     """Asynchronous durable sink for engine block outputs.
 
     ``n_partitions``/``partition_fn`` route keys to partition stores
-    (default: ``key % n_partitions``, the JAX package's block layout).
+    (default: ``key % n_partitions``, the block layout);
+    ``ShardedFeatureEngine.make_sink`` passes its layout's ``route``.
     ``device`` names the device whose tensors the sink takes (``cuda:0``
     unless named; ``run_stream`` checks it against the state's).
 
@@ -321,6 +400,15 @@ class WriteBehindSink:
         self._unsynced = 0
         self._unsynced_cv = threading.Condition()
         self.stats = SinkStats()
+        self.overlap = _OverlapMeter()
+        # epoch-gated read lane (see ``stage_epoch``): key -> epoch of the
+        # latest *staged* flush containing that key.  Written only by the
+        # single staging thread; sized on demand.
+        self._epoch_of_key = np.zeros(0, np.int64)
+        self._staged_seq = 0
+        self._applied = [0] * len(self.stores)
+        self._park_lock = [threading.Lock() for _ in self.stores]
+        self._parked: List[List[tuple]] = [[] for _ in self.stores]
         self._put_busy = [0.0] * len(self.stores)
         self._exc: Optional[BaseException] = None
         self._closed = False
@@ -345,7 +433,8 @@ class WriteBehindSink:
             self._thread.start()
 
     # ------------------------------------------------------------ driver
-    def submit(self, keys, z, valid, rows) -> None:
+    def submit(self, keys, z, valid, rows, seq: Optional[int] = None
+               ) -> None:
         """Queue one block for durable flush.
 
         ``keys``: [B] global entity ids; ``z``: [B] persistence decisions;
@@ -354,10 +443,17 @@ class WriteBehindSink:
         ``(scalars[4, B], agg[B, T, 3])`` with scalar columns ordered
         ``[last_t, v_f, v_full, last_t_full]`` (``core.stream.
         sink_step_for``), or the flat 5-tuple ``(last_t, v_f, agg, v_full,
-        last_t_full)``.  Arguments may be device tensors: the device->host
+        last_t_full)``.  Arguments may be device arrays: the device->host
         conversion happens on the flush thread, overlapping the next
         block's compute.  Blocks (bounded queue) when ``queue_depth``
         flushes are already in flight — backpressure, not buffering.
+
+        ``seq`` (pipelined drivers) names the flush epoch this block was
+        staged as (``stage_epoch``): once the block's puts have executed,
+        every partition's applied counter advances to ``seq``, releasing
+        any staged reads parked on it.  Blocks carrying a ``seq`` must be
+        submitted in staging order — the pipelined drivers dispatch
+        groups in stream order, so this holds by construction.
         """
         if self._closed:
             # the drain thread is gone: enqueueing would silently drop
@@ -378,7 +474,7 @@ class WriteBehindSink:
             self.stats.submit_wait_s += time.perf_counter() - t0
             self._check()
         if self._serial:
-            self._flush_block(keys, z, valid, rows)
+            self._flush_block(keys, z, valid, rows, seq)
             return
         if self._overflow == "degrade-to-serial" and self._q.full():
             # graceful degradation: drain the pipeline (preserving FIFO
@@ -391,21 +487,78 @@ class WriteBehindSink:
                 sq.join()
             self._check()
             self.stats.degraded_flushes += 1
-            self._flush_block(keys, z, valid, rows, inline=True)
+            self._flush_block(keys, z, valid, rows, seq, inline=True)
             self.stats.submit_wait_s += time.perf_counter() - t0
             return
         t0 = time.perf_counter()
-        self._q.put(("block", keys, z, valid, rows))
+        self._q.put(("block", keys, z, valid, rows, seq))
         self.stats.submit_wait_s += time.perf_counter() - t0
 
-    def submit_read(self, keys) -> ReadTicket:
-        """Queue a batched read of ``keys``.
+    def stage_epoch(self, keys, valid=None) -> int:
+        """Record one flush group as *staged* and return its epoch.
 
-        The read rides the same FIFO pipeline as the flush blocks —
-        dispatcher queue, then the owning partition's store queue — so it
-        observes every flush submitted before it; per partition store,
-        reads can never overtake earlier writes.  With an L2 tier the
-        cached keys are answered from its packed bytes (``_exec_get``).
+        The pipelined drivers plan group *g+1* while group *g* is still on
+        device, so a rehydration read for *g+1* can be submitted before
+        *g*'s flush block even exists — the dispatcher-FIFO ordering the
+        serial drivers rely on cannot sequence it.  The epoch lane
+        replaces queue position with explicit happens-before: the staging
+        thread calls ``stage_epoch(keys, valid)`` the moment a group's
+        lanes are known (marking each valid key's latest staged epoch),
+        later submits the flush with ``submit(..., seq=epoch)``, and
+        gates reads of possibly-staged keys with ``submit_read(...,
+        staged=True)`` — each such read carries, per partition, the
+        maximum staged epoch over its keys and executes only once that
+        partition has applied it.
+
+        Contract (single-stager): ``stage_epoch`` and every
+        ``staged=True`` read are called from one thread, in stream order,
+        and a group's *own* hydration reads are submitted **before** its
+        ``stage_epoch`` — a group must not wait on its own epoch.  Every
+        staged epoch must eventually be submitted, or reads parked on it
+        wait forever.  Keys staged but ultimately thinned (``z=False``)
+        still advance the applied counter with their group — semantically
+        right, since their durable row legitimately stays older.
+        """
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        if valid is not None:
+            keys = keys[np.asarray(valid, bool).reshape(-1)]
+        self._staged_seq += 1
+        seq = self._staged_seq
+        self.stats.epochs_staged += 1
+        if keys.size:
+            hi = int(keys.max()) + 1
+            if hi > self._epoch_of_key.size:
+                grown = np.zeros(max(hi, 2 * self._epoch_of_key.size, 1024),
+                                 np.int64)
+                grown[:self._epoch_of_key.size] = self._epoch_of_key
+                self._epoch_of_key = grown
+            self._epoch_of_key[keys] = seq
+        return seq
+
+    def submit_read(self, keys, ordered: bool = True, *,
+                    staged: bool = False) -> ReadTicket:
+        """Queue a batched read of ``keys`` (hydration path).
+
+        ``ordered=True`` (default): the read rides the same FIFO pipeline
+        as the flush blocks — dispatcher queue, then the owning
+        partition's store queue — so it observes every flush submitted
+        before it; per partition store, reads can never overtake earlier
+        writes.  ``ordered=False`` skips the dispatcher and enqueues
+        straight on the store-worker queues: the read no longer waits for
+        in-flight blocks to be converted and packed.  Only correct for
+        keys that cannot be in any in-flight flush — e.g. a residency
+        driver's *first-touch* misses, which this run has never written
+        (``streaming.residency.GroupAssignment.miss_fresh``).
+
+        ``staged=True`` (pipelined drivers; implies the fast direct lane):
+        the read carries, per partition, the maximum *staged* epoch over
+        its keys (``stage_epoch``).  A store worker executes it
+        immediately if that partition has already applied the epoch,
+        otherwise parks it — never blocking the worker, whose queue still
+        holds the very flushes the read is waiting for — and the epoch
+        marker trailing the awaited flush drains the parking lot.  This
+        gives exactly the serial FIFO guarantee (a read observes every
+        flush *staged* before it) without riding behind the dispatcher.
 
         Returns a ``ReadTicket``; ``ticket.result()`` blocks until the
         rows (aligned with ``keys``, ``None`` for absent entries) are
@@ -426,12 +579,94 @@ class WriteBehindSink:
             idx = np.nonzero(part == p)[0]
             splits.append((int(p), idx, keys[idx]))
         ticket = ReadTicket(int(keys.size), len(splits), self.stats)
+        if staged:
+            self.stats.staged_reads += 1
+            eok = self._epoch_of_key
+            for p, idx, ks in splits:
+                inb = ks[ks < eok.size]
+                need = int(np.max(eok[inb], initial=0)) if inb.size else 0
+                if self._serial:
+                    # no workers to park on; the single-driver contract
+                    # (reads staged before their epoch's submit, submits
+                    # in stage order) makes every need already applied
+                    if need > self._applied[p]:
+                        raise RuntimeError(
+                            "staged read needs epoch "
+                            f"{need} > applied {self._applied[p]} on a "
+                            "serial sink (pipelined drivers require "
+                            "queue_depth >= 1)")
+                    ticket._deliver(idx, self._exec_get(p, ks))
+                else:
+                    self._store_qs[p].put(("read", ticket, idx, ks, need))
+            return ticket
         if self._serial:
             for p, idx, ks in splits:
                 ticket._deliver(idx, self._exec_get(p, ks))
-        else:
+            return ticket
+        if ordered:
             self._q.put(("read", ticket, splits))
+        else:
+            for p, idx, ks in splits:
+                self._store_qs[p].put(("read", ticket, idx, ks))
         return ticket
+
+    def demote(self, keys) -> None:
+        """Demote evicted keys into the host L2 tier (no-op without one).
+
+        Driver-thread call at slot eviction: present entries (the
+        victim's row or cached absence, written at flush/read execution
+        time) get their LRU recency refreshed.  Refresh-only (see
+        ``HostL2Cache.demote`` for why demote must never insert), so
+        racing with the key's in-flight flush is harmless in either
+        order.
+        """
+        if self.l2 is None:
+            return
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        if keys.size == 0:
+            return
+        part = np.asarray(self._partition_fn(keys))
+        for p in np.unique(part):
+            self.l2[int(p)].demote(keys[part == p])
+
+    def l2_probe(self, keys):
+        """Driver-side L2 lookup: ``(rows, hit)`` aligned with ``keys``.
+
+        The partition-aware probe path for cold scoring — pass it as
+        ``materialize_cold(..., l2_probe=sink.l2_probe)`` (what
+        ``serving.pipeline.ScoringPipeline.score_cold`` does) so lookups
+        use the same ``partition_fn`` keying the rows were inserted
+        under.  Coherent with the stores only when the pipeline is
+        quiescent — call after ``flush()``.  Without an L2 every key is
+        a miss.
+        """
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        rows: List[Optional[bytes]] = [None] * int(keys.size)
+        hit = np.zeros(keys.size, bool)
+        if self.l2 is None or keys.size == 0:
+            return rows, hit
+        part = np.asarray(self._partition_fn(keys))
+        for p in np.unique(part):
+            idx = np.nonzero(part == p)[0]
+            r, h = self.l2[int(p)].probe(keys[idx])
+            for j, rj in zip(idx, r):
+                rows[int(j)] = rj
+            hit[idx] = h
+        return rows, hit
+
+    def l2_contains(self, keys) -> np.ndarray:
+        """Advisory L2 presence mask (racy vs in-flight flushes; stats
+        only — the serving frontend counts prefetches the tier will
+        absorb).  All-False without an L2."""
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        if self.l2 is None or keys.size == 0:
+            return np.zeros(keys.size, bool)
+        out = np.zeros(keys.size, bool)
+        part = np.asarray(self._partition_fn(keys))
+        for p in np.unique(part):
+            idx = np.nonzero(part == p)[0]
+            out[idx] = self.l2[int(p)].contains(keys[idx])
+        return out
 
     def flush(self) -> dict:
         """Block until every submitted block is durably stored."""
@@ -523,11 +758,19 @@ class WriteBehindSink:
                  "fsyncs": m.get("fsyncs", 0)} if m else {}
                 for m in per_part]
         agg["unsynced_bytes"] = self._unsynced
+        # host/device split: totals + measured wall-clock intersection
+        self.stats.host_pack_s = self.overlap.total[_OverlapMeter.HOST]
+        self.stats.device_wait_s = self.overlap.total[_OverlapMeter.DEVICE]
+        self.stats.overlap_s = self.overlap.overlap_s
+        self.stats.overlap_frac = (
+            self.stats.overlap_s / self.stats.host_pack_s
+            if self.stats.host_pack_s > 0 else 0.0)
         if self.l2 is not None:
             # dedupe by identity: a single shared cache may back every
             # partition slot
             caches = list({id(c): c for c in self.l2}.values())
             self.stats.l2_hits = sum(c.hits for c in caches)
+            self.stats.l2_demotions = sum(c.demotions for c in caches)
             self.stats.l2_bytes = sum(c.bytes for c in caches)
             self.stats.l2_shed_rows = sum(c.shed_rows for c in caches)
             agg["l2_rows"] = sum(len(c) for c in caches)
@@ -592,21 +835,44 @@ class WriteBehindSink:
                 self._q.task_done()
 
     def _store_drain(self, i: int) -> None:
-        """One partition store's worker: batched puts and ordered reads."""
+        """One partition store's worker: batched puts, ordered reads,
+        epoch markers (which advance ``_applied[i]`` and drain any staged
+        reads parked on them)."""
         sq = self._store_qs[i]
         while True:
             item = sq.get()
             if item is _STOP:
+                # fail, never strand: parked reads wait on epochs that
+                # can no longer arrive
+                with self._park_lock[i]:
+                    parked, self._parked[i] = self._parked[i], []
+                for ticket, idx, ks, need in parked:
+                    ticket._deliver(idx, (), exc=RuntimeError(
+                        f"sink closed with a staged read parked on "
+                        f"epoch {need}"))
                 sq.task_done()
                 return
             try:
                 if item[0] == "read":
-                    _, ticket, idx, ks = item
+                    ticket, idx, ks = item[1], item[2], item[3]
+                    need = item[4] if len(item) > 4 else 0
+                    if need > self._applied[i]:
+                        parked = False
+                        with self._park_lock[i]:
+                            if need > self._applied[i]:
+                                self._parked[i].append(
+                                    (ticket, idx, ks, need))
+                                self.stats.parked_reads += 1
+                                parked = True
+                        if parked:
+                            continue
                     try:
                         ticket._deliver(idx, self._exec_get(i, ks))
                     except BaseException as e:
                         ticket._deliver(idx, (), exc=e)
                         raise
+                elif item[0] == "epoch":
+                    self._mark_applied(i, item[1])
                 else:
                     _, ks, rows, nbytes = item
                     try:
@@ -622,6 +888,26 @@ class WriteBehindSink:
                 self._exc = e
             finally:
                 sq.task_done()
+
+    def _mark_applied(self, p: int, seq: int) -> None:
+        """Advance partition ``p``'s applied epoch and run any staged
+        reads whose need it satisfies.  Runs on the partition's worker
+        thread (epoch marker) or the driver thread (serial sink), so the
+        one-thread-at-a-time-per-store invariant holds either way."""
+        with self._park_lock[p]:
+            if seq > self._applied[p]:
+                self._applied[p] = seq
+            applied = self._applied[p]
+            runnable = [e for e in self._parked[p] if e[3] <= applied]
+            if runnable:
+                self._parked[p] = [e for e in self._parked[p]
+                                   if e[3] > applied]
+        for ticket, idx, ks, _need in runnable:
+            try:
+                ticket._deliver(idx, self._exec_get(p, ks))
+            except BaseException as e:
+                ticket._deliver(idx, (), exc=e)
+                raise
 
     @staticmethod
     def _payload_bytes(rows) -> int:
@@ -676,8 +962,9 @@ class WriteBehindSink:
         issue the durable ``multi_get``, and its results (rows *and*
         authoritative absences) are filled back into the cache so repeat
         hydrations of the same key skip the store.  Runs on the
-        partition's worker thread or the serial strawman's driver thread —
-        both safe, see ``HostL2Cache``.
+        partition's worker thread (ordered lane), the serial strawman's
+        driver thread, or the unordered fast lane — all safe, see
+        ``HostL2Cache``.
         """
         if self.l2 is None:
             return self._with_retry(self.stores[p].multi_get, keys)
@@ -691,15 +978,18 @@ class WriteBehindSink:
                 rows[int(j)] = r
         return rows
 
-    def _flush_block(self, keys, z, valid, rows, inline: bool = False
-                     ) -> None:
+    def _flush_block(self, keys, z, valid, rows, seq: Optional[int] = None,
+                     inline: bool = False) -> None:
         t0 = time.perf_counter()
         # flush groups arrive with z shaped [G, B]; lanes are flat below.
-        # The ``_host`` conversions are the sink-gather sync points:
-        # materializing ``z`` (and the gathered rows) waits for the
-        # group's device compute.
-        keys = _host(keys).reshape(-1)
-        z = _host(z).reshape(-1)
+        # The ``_host`` conversions below are the sink-gather sync
+        # points: materializing ``z`` (and the gathered rows) waits for
+        # the group's device compute, so they run under the overlap
+        # meter's device channel — that wait is exactly the device time
+        # a pipelined driver can hide host pack work beneath.
+        with self.overlap.device():
+            keys = _host(keys).reshape(-1)
+            z = _host(z).reshape(-1)
         valid = _host(valid).reshape(-1)
         st = self.stats
         st.blocks += 1
@@ -716,14 +1006,17 @@ class WriteBehindSink:
             st.dedup_saved += idx.size - uk.size
             if len(rows) == 2:
                 # stacked driver form: (scalars[4, B], agg).  Fetched
-                # whole-block (two device-to-host copies), then selected
-                # on the host.
-                scal = _host(rows[0])[:, pick]
-                agg = _host(rows[1])[pick]
+                # whole-block (two fixed-shape host reads) — selecting on
+                # device first would re-trace a gather per distinct
+                # selection size, which costs far more than the copy.
+                with self.overlap.device():
+                    scal = _host(rows[0])[:, pick]
+                    agg = _host(rows[1])[pick]
                 last_t, v_f, v_full, last_t_full = scal
             else:
-                last_t, v_f, agg, v_full, last_t_full = \
-                    tuple(_host(r)[pick] for r in rows)
+                with self.overlap.device():
+                    last_t, v_f, agg, v_full, last_t_full = \
+                        tuple(_host(r)[pick] for r in rows)
             if not self.full_stream:
                 # control column is not durable under thinning policies
                 v_full = np.zeros_like(v_full)
@@ -736,6 +1029,16 @@ class WriteBehindSink:
             for p in np.unique(part):
                 m = part == p
                 self._put(int(p), uk[m], packed[m], inline=inline)
+        if seq is not None:
+            # epoch marker trails the block's puts on *every* partition
+            # (even ones this block wrote nothing to): once a partition
+            # processes it, every put of epochs <= seq has executed there
+            if self._serial or inline:
+                for p in range(len(self.stores)):
+                    self._mark_applied(p, seq)
+            else:
+                for sq in self._store_qs:
+                    sq.put(("epoch", seq))
         st.flush_s += time.perf_counter() - t0
 
 

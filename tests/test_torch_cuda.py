@@ -223,3 +223,88 @@ def test_keyed_kernel_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="key"):
         trmw.thinning_rmw_keyed_cuda(taus, state, key, f, f, valid, (0, 0),
                                      h=600.0, budget=0.01)
+
+
+def _zipf_stream(n, n_keys, seed=0):
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n_keys + 1) ** 1.1
+    keys = rng.choice(n_keys, n, p=w / w.sum()).astype(np.int32)
+    ts = np.cumsum(rng.exponential(5.0, n)).astype(np.float32)
+    qs = rng.lognormal(3.0, 1.0, n).astype(np.float32)
+    return keys, qs, ts
+
+
+def _stored(sink):
+    sink.flush()
+    merged = {}
+    for s in sink.stores:
+        merged.update(s.data)
+    sink.close()
+    return merged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+def test_resident_and_pipelined_on_card_bitwise(cuda_device, mode):
+    """On the card, where the pipelined plane's copies really are
+    asynchronous: resident (serial) == dense, and resident at depth 2 ==
+    resident serial — decisions, features and stored bytes bitwise, with
+    evictions, rehydrations, the L2 tier and split groups in the run."""
+    from repro_torch.streaming.persistence import WriteBehindSink
+    from repro_torch.streaming.residency import ResidencyMap
+
+    n_keys, batch, group = 512, 256, 2
+    keys, qs, ts = _zipf_stream(12_000, n_keys)
+    rounds = max(int(np.bincount(keys[i:i + batch]).max())
+                 for i in range(0, len(keys), batch))
+    cfg = EngineConfig(taus=(60.0, 3600.0, 86400.0), h=600.0,
+                       budget=0.002, alpha=1.0, policy="pp_vr",
+                       exact_rounds=rounds)
+
+    def run(slots=None, depth=1):
+        sink = WriteBehindSink(cfg, n_partitions=3, l2=64,
+                               device=cuda_device)
+        rmap = ResidencyMap(n_keys, slots) if slots else None
+        _, info = run_stream(cfg, init_state(slots or n_keys, 3,
+                                             device=cuda_device),
+                             keys, qs, ts, batch=batch, mode=mode,
+                             rng=prng_key(7), sink=sink, sink_group=group,
+                             residency=rmap, pipeline_depth=depth)
+        return info, _stored(sink), rmap
+
+    dense, dense_bytes, _ = run()
+    serial, serial_bytes, rmap = run(slots=160)
+    piped, piped_bytes, rmap2 = run(slots=160, depth=2)
+    assert rmap.stats.evictions > 0 and rmap.stats.misses > 160
+    assert rmap.stats.splits > 0
+    assert rmap.stats.snapshot() == rmap2.stats.snapshot()
+    for name in ("z", "p", "lam_hat", "features"):
+        assert _bitwise(getattr(dense, name), getattr(serial, name)), name
+        assert _bitwise(getattr(serial, name), getattr(piped, name)), name
+    assert dense_bytes == serial_bytes == piped_bytes and dense_bytes
+
+
+@pytest.mark.cuda
+def test_worker_on_card_matches_sink(cuda_device):
+    """The per-event worker on the card (the rows entry at B = 1, the
+    uniform drawn on the host) stores the exact sink's bytes; it launches
+    the rows entry once an event and never runs the RNG on the card."""
+    from repro_torch.kernels import threefry
+    from repro_torch.streaming.kvstore import KVStore
+    from repro_torch.streaming.persistence import WriteBehindSink
+    from repro_torch.streaming.worker import FeatureWorker
+
+    keys, qs, ts = _zipf_stream(600, 64, seed=1)
+    cfg = EngineConfig(taus=(60.0, 3600.0), h=600.0, budget=0.002,
+                       policy="pp", exact_rounds=64)
+    sink = WriteBehindSink(cfg, n_partitions=1, device=cuda_device)
+    run_stream(cfg, init_state(64, 2, device=cuda_device), keys, qs, ts,
+               batch=128, mode="exact", rng=prng_key(3), sink=sink)
+    worker = FeatureWorker(cfg, KVStore(), rng=prng_key(3),
+                           device=cuda_device)
+    launches, rng_calls = trmw.launches, threefry.cuda_calls
+    for k, q, t in zip(keys.tolist(), qs.tolist(), ts.tolist()):
+        worker.process(k, q, t)
+    assert trmw.launches - launches == len(keys)
+    assert threefry.cuda_calls == rng_calls
+    assert worker.store.data == _stored(sink)

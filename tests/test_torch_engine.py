@@ -234,6 +234,26 @@ def test_entry_points_default_to_the_card():
     assert init_state(8, 2, device="cpu").device.type == "cpu"
 
 
+def test_weight_carry_over_defaults_to_the_card():
+    """``from_jax_params`` resolves its device like every entry point:
+    ``cuda:0`` unless named, raising without a GPU."""
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.models.convert import from_jax_params
+
+    cfg = load_smoke_config("recurrentgemma-2b").model
+    # a tree the port refuses once it gets past the device
+    tree = {"embed": {}, "prefix": [{}], "groups": [], "suffix": [],
+            "final_norm": {}}
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="prefix"):
+            from_jax_params(cfg, tree)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            from_jax_params(cfg, tree)
+    with pytest.raises(ValueError, match="prefix"):
+        from_jax_params(cfg, tree, device="cpu")
+
+
 @pytest.mark.parametrize("collect_info", [True, False])
 def test_run_stream_empty_stream(collect_info):
     empty = np.zeros(0, np.float32)
@@ -247,16 +267,6 @@ def test_run_stream_empty_stream(collect_info):
     else:
         assert out.shape == (0,)
     assert bool(torch.isinf(st.last_t).all())
-
-
-@pytest.mark.parametrize("option", [{"residency": 8},
-                                    {"pipeline_depth": 2}])
-def test_unported_driver_options_raise(option):
-    keys, qs, ts = _stream(n_events=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_stream(EngineConfig(taus=(60.0,)), init_state(N_KEYS, 1,
-                                                          device="cpu"),
-                   keys, qs, ts, batch=32, **option)
 
 
 def test_import_hygiene():

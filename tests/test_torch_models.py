@@ -57,7 +57,8 @@ def model():
     jparams = jbb.init_params(jrun.model, jax.random.PRNGKey(0),
                               jnp.float32)
     run = load_smoke_config(ARCH)
-    params = from_jax_params(run.model, jax.tree.map(np.asarray, jparams))
+    params = from_jax_params(run.model, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     return jrun, jparams, run, params
 
 
