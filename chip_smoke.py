@@ -7,7 +7,7 @@ It builds the port's three CUDA kernels from this checkout's sources
 (``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
 for ``sm_90a``, all started together, into ``build/``), checks with
 ``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
-(tensor-core) instructions, then runs seven phases; any failure raises
+(tensor-core) instructions, then runs eight phases; any failure raises
 and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
@@ -83,14 +83,35 @@ and the script exits non-zero.
    mode: its store bytes must equal an exact ``run_stream`` + sink's, with
    one rows-entry launch an event and no uniform drawn on the card.  The
    keyed kernel must launch once per block in (a)-(c).
+8. Online frontend (it runs after phase 7, on phase 2's stream): the
+   same deployment served through ``serving.frontend`` at batch 256 with
+   a 2 ms deadline, each run from a fresh dense 800,000-key state, on the
+   first 262,144 events (the one cut, recorded as ``reduced``): (a)
+   capacity, every request at 0 on ``RealClock``, fast, serial, memory
+   sink — bitwise equal to ``run_stream`` at batch 256 (decisions,
+   features, scores through ``score_at_width``, store bytes, final
+   state); (b) Poisson arrivals at 0.5x and 0.8x of (a)'s capacity
+   through ``ScoringPipeline.serve`` — latency quantiles, mean batch,
+   deadline share; bitwise equal to a closed-loop replay at the run's own
+   dispatch boundaries; (c) exact mode at 0.5x on the first 65,536 events
+   with ``exact_rounds`` the most events of one key in any 256
+   consecutive events — bitwise equal to the exact ``run_stream``, 1 +
+   rounds write-back launches a dispatch; (d) 100,000 resident slots under
+   threaded admission, every request at 0 — bitwise equal to (a); (e) the
+   SIGKILL victim on the card, fast and exact, its recovered store equal
+   to ``faults.run_reference`` on the card; (f) (a)'s final state saved
+   by ``CheckpointManager``, restored onto the card and repartitioned 1 ->
+   4 -> 1 shards, bitwise.  The keyed kernel must launch once per fast
+   dispatch; no plain step may run on a CUDA tensor.
 
 After phase 6 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
 its default dispatch picked is named (matched by the kernels it
 launches).
 
-Earlier lines print JSON records; the line before the last is the kernel
-table, the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
+Earlier lines print JSON records (phase 8's carry the card's name and
+power limit); the line before the last is the kernel table, the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -136,6 +157,9 @@ BLOCK_TOL = {"rec": 1e-3, "attn": 1e-4}
 BLOCK_S = 2304
 N_SLOTS, SINK_GROUP, SCORER_HIDDEN = 100_000, 4, 64
 WORKER_EVENTS = 16_384
+FE_BATCH, FE_WAIT_S = 256, 2e-3        # the JAX bench_serving.py defaults
+FE_EVENTS, FE_EXACT_EVENTS = PREFIX, 65_536
+FE_LOADS = (0.5, 0.8)                  # of phase 8 (a)'s capacity
 
 
 def check(ok: bool, what: str) -> None:
@@ -821,6 +845,310 @@ def phase_scoring(device, stream):
     return {"keyed": trmw.keyed_launches, "rows_entry": rows_launches}
 
 
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def max_per_key_in_window(keys, width):
+    """The most events one key has among any ``width`` consecutive events
+    — the ``exact_rounds`` that no batching of at most ``width`` events
+    exceeds."""
+    keys = np.asarray(keys, np.int64)
+    n = keys.size
+    pos = np.arange(n, dtype=np.int64)
+    order = np.lexsort((pos, keys))
+    combo = keys[order] * n + pos[order]              # ascending
+    lo = keys[order] * n + np.maximum(pos[order] - (width - 1), 0)
+    return int((np.arange(n) - np.searchsorted(combo, lo) + 1).max())
+
+
+def phase_frontend(device, stream):
+    """Phase 8: the online scoring frontend at the iiot deployment's full
+    state size — capacity, open loop, exact mode, resident threaded
+    admission, the crash victim on the card, checkpoints."""
+    import signal
+    import tempfile
+
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        repartition_profile_state)
+    from repro_torch.core import init_state, prng_key, run_stream
+    from repro_torch.features.spec import ProfileSpec
+    from repro_torch.kernels import thinning_rmw as trmw
+    from repro_torch.serving import pipeline
+    from repro_torch.serving.frontend import (ServingFrontend,
+                                              make_requests,
+                                              poisson_arrivals,
+                                              score_at_width)
+    from repro_torch.streaming import faults
+    from repro_torch.streaming.durable import DurableStore
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    card = card_name_and_limit()
+    n = FE_EVENTS
+    keys, qs, ts = (x[:n] for x in (stream.key, stream.q, stream.t))
+    spec = ProfileSpec(kde_bandwidth=3600.0, write_budget_per_min=0.1 / 60,
+                       policy="pp")
+    cfg = spec.engine_config()
+    T = len(cfg.taus)
+    pipe = pipeline.ScoringPipeline.build(spec, N_KEYS, mode="fast",
+                                          device=device)
+    pipe.scorer = pipeline.init_scorer(torch.Generator().manual_seed(0),
+                                       spec.feature_dim,
+                                       hidden=SCORER_HIDDEN, device=device)
+    rng = prng_key(0)
+    fields = ("z", "p", "lam_hat", "features")
+    emit(frontend_setup={
+        "card": card, "regime": "iiot", "keys": N_KEYS,
+        "state_mb": N_KEYS * (4 + 3 * T) * 4 / 1e6, "policy": "pp",
+        "windows": len(cfg.taus), "lambda_h": 0.1, "batch": FE_BATCH,
+        "max_wait_s": FE_WAIT_S, "scorer_hidden": SCORER_HIDDEN,
+        "slots_d": N_SLOTS, "reduced": {
+            "events": f"the first {n} of the {len(stream.key)}-event "
+                      f"stream (phase 3's parity prefix)",
+            "exact_events": f"(c) the first {FE_EXACT_EVENTS}"}})
+
+    def serve_run(step, run, k, launches_per_dispatch=1):
+        """Time one frontend run (its outputs reach the host before it
+        returns); check its launches; return its record."""
+        sink = pipe.make_sink()
+        torch.cuda.synchronize()
+        before = trmw.keyed_launches
+        t0 = time.perf_counter()
+        res = run(sink)
+        wall = time.perf_counter() - t0
+        snap = sink.flush()
+        sink.close()
+        launched = trmw.keyed_launches - before
+        st = res.stats
+        check(launched == launches_per_dispatch * st.dispatches,
+              f"{step}: {launched} keyed launches for {st.dispatches} "
+              f"dispatches")
+        check(st.events == k and np.array_equal(np.sort(res.order),
+                                                np.arange(k)),
+              f"{step}: requests dropped or duplicated")
+        check(bool(np.isfinite(res.scores).all())
+              and bool(np.isfinite(res.features).all()),
+              f"{step}: non-finite outputs")
+        makespan = max(b.t_complete for b in res.batches)
+        q = res.latency_quantiles()
+        rec = {"step": step, "card": card, "events": k,
+               "dispatches": st.dispatches, "full_batches": st.full_batches,
+               "deadline_batches": st.deadline_batches,
+               "mean_batch": st.events / st.dispatches,
+               "max_queue": st.max_queue, "keyed_launches": launched,
+               "makespan_s": makespan, "events_per_s": k / makespan,
+               "first_dispatch_s": res.batches[0].t_dispatch,
+               "wall_s": wall, "p50_ms": 1e3 * q["p50"],
+               "p99_ms": 1e3 * q["p99"], "p999_ms": 1e3 * q["p999"],
+               "puts": snap["puts"], "puts_per_event": snap["puts"] / k,
+               "durable_gets": snap["gets"], "gets_per_event": snap["gets"] / k}
+        return res, rec, launched
+
+    def same(a, b, what, k=n):
+        for f in fields:
+            check(np.array_equal(getattr(a, f)[:k].view(np.uint8),
+                                 getattr(b, f)[:k].view(np.uint8)),
+                  f"{what}: {f} differs")
+
+    # warm-up: a short burst, so the timed runs do not pay for the
+    # first dispatch's allocations and cuBLAS set-up
+    w = 4 * FE_BATCH
+    wsink = pipe.make_sink()
+    pipe.serve(keys[:w], qs[:w], ts[:w], arrival_s=np.zeros(w),
+               batch=FE_BATCH, max_wait_s=FE_WAIT_S, rng=rng, sink=wsink)
+    wsink.close()
+
+    reset_counts()                          # the frontend path starts here
+    keyed = 0
+    # (a) capacity: every request at 0, so every batch is full; the
+    # frontend is built directly to keep its final state for (f)
+    requests = make_requests(keys, qs, ts, np.zeros(n))
+    a_run = {}
+
+    def run_a(sink):
+        fe = ServingFrontend(cfg, init_state(N_KEYS, T, device=device),
+                             batch=FE_BATCH, max_wait_s=FE_WAIT_S,
+                             mode="fast", rng=rng, sink=sink,
+                             scorer=pipe.scorer)
+        res = fe.run(requests)
+        sink.flush()
+        a_run.update(fe=fe, stored=_store_bytes(sink))
+        return res
+
+    res_a, rec, launched = serve_run("a_capacity", run_a, n)
+    fe, a_bytes = a_run["fe"], a_run["stored"]
+    keyed += launched
+    check(res_a.stats.full_batches == n // FE_BATCH, "(a): a batch was cut")
+    capacity = rec["events_per_s"]
+    sink_c = pipe.make_sink()
+    state_c, info = run_stream(cfg, init_state(N_KEYS, T, device=device),
+                               keys, qs, ts, batch=FE_BATCH, mode="fast",
+                               rng=rng, sink=sink_c)
+    sink_c.flush()
+    closed = {f: getattr(info, f).cpu().numpy() for f in fields}
+    closed_scores = np.concatenate([
+        score_at_width(pipe.scorer, info.features[i:i + FE_BATCH], FE_BATCH)
+        for i in range(0, n, FE_BATCH)])
+    for f in fields:
+        check(np.array_equal(getattr(res_a, f).view(np.uint8),
+                             closed[f].view(np.uint8)),
+              f"(a) vs run_stream: {f} differs")
+    check(np.array_equal(res_a.scores.view(np.uint32),
+                         closed_scores.view(np.uint32)),
+          "(a) vs run_stream: scores differ")
+    check(a_bytes == _store_bytes(sink_c) and len(a_bytes) > 0,
+          "(a) vs run_stream: stored bytes differ")
+    sink_c.close()
+    for name, x, y in zip(state_c._fields, fe.state, state_c):
+        check(bitwise_equal(x, y), f"(a) vs run_stream: state {name}")
+    del info, state_c
+    rec["bitwise_vs_run_stream"] = True
+    emit(frontend=rec)
+
+    # (b) open loop: Poisson arrivals at fractions of (a)'s capacity; the
+    # replay runs the frontend's own dispatch boundaries closed-loop
+    for i, frac in enumerate(FE_LOADS):
+        rate = frac * capacity
+        arrivals = poisson_arrivals(n, rate, seed=8 + i)
+        res, rec, launched = serve_run(
+            f"b_open_loop_{frac}", lambda sink: pipe.serve(
+                keys, qs, ts, arrival_s=arrivals, batch=FE_BATCH,
+                max_wait_s=FE_WAIT_S, rng=rng, sink=sink), n)
+        keyed += launched
+        state = init_state(N_KEYS, T, device=device)
+        want = {f: np.zeros_like(getattr(res, f)) for f in fields}
+        want_scores = np.zeros_like(res.scores)
+        pos = 0
+        for b in res.batches:
+            rids = res.order[pos:pos + b.size]
+            pos += b.size
+            state, info = run_stream(cfg, state, keys[rids], qs[rids],
+                                     ts[rids], batch=FE_BATCH, mode="fast",
+                                     rng=rng)
+            for f in fields:
+                want[f][rids] = getattr(info, f).cpu().numpy()
+            want_scores[rids] = score_at_width(pipe.scorer, info.features,
+                                               FE_BATCH)
+        for f in fields:
+            check(np.array_equal(getattr(res, f).view(np.uint8),
+                                 want[f].view(np.uint8)),
+                  f"(b) {frac}: {f} differs from the replay")
+        check(np.array_equal(res.scores.view(np.uint32),
+                             want_scores.view(np.uint32)),
+              f"(b) {frac}: scores differ from the replay")
+        rec.update(offered_per_s=rate, load=frac,
+                   deadline_share=rec["deadline_batches"] / rec["dispatches"],
+                   bitwise_vs_replay_at_own_boundaries=True)
+        emit(frontend=rec)
+        del state, info
+
+    # (c) exact mode at half capacity; exact_rounds covers any batch cut
+    k = FE_EXACT_EVENTS
+    rounds = max_per_key_in_window(keys[:k], FE_BATCH)
+    epipe = pipeline.ScoringPipeline.build(spec, N_KEYS, mode="exact",
+                                           device=device,
+                                           exact_rounds=rounds)
+    epipe.scorer = pipe.scorer
+    ecfg = epipe.engine.cfg
+    arrivals = poisson_arrivals(k, FE_LOADS[0] * capacity, seed=10)
+    res, rec, write_back = serve_run(
+        "c_exact", lambda sink: epipe.serve(
+            keys[:k], qs[:k], ts[:k], arrival_s=arrivals, batch=FE_BATCH,
+            max_wait_s=FE_WAIT_S, rng=rng, sink=sink), k,
+        launches_per_dispatch=1 + rounds)
+    _, info = run_stream(ecfg, init_state(N_KEYS, T, device=device),
+                         keys[:k], qs[:k], ts[:k], batch=FE_BATCH,
+                         mode="exact", rng=rng)
+    for f in fields:
+        check(np.array_equal(getattr(res, f).view(np.uint8),
+                             getattr(info, f).cpu().numpy().view(np.uint8)),
+              f"(c) vs exact run_stream: {f} differs")
+    rec.update(exact_rounds=rounds, write_back_launches=write_back,
+               offered_per_s=FE_LOADS[0] * capacity,
+               bitwise_vs_run_stream=True)
+    emit(frontend=rec)
+    del info
+
+    # (d) resident, threaded admission, every request at 0
+    res, rec, launched = serve_run(
+        "d_resident_threaded", lambda sink: pipe.serve(
+            keys, qs, ts, arrival_s=np.zeros(n), batch=FE_BATCH,
+            max_wait_s=FE_WAIT_S, rng=rng, sink=sink, residency=N_SLOTS,
+            admission="threaded"), n)
+    keyed += launched
+    same(res, res_a, "(d) vs (a)")
+    check(np.array_equal(res.scores.view(np.uint32),
+                         res_a.scores.view(np.uint32)),
+          "(d) vs (a): scores differ")
+    st = res.stats
+    rec.update(slots=N_SLOTS, prefetch_issued=st.prefetch_issued,
+               prefetch_hits=st.prefetch_hits,
+               prefetch_rehydrations=st.prefetch_rehydrations,
+               demand_reads=st.demand_reads, bitwise_vs_a=True)
+    emit(frontend=rec)
+    check_no_plain_steps("the frontend phase")
+
+    # (e) the SIGKILL victim on the card, recovered against the card
+    for mode in ("fast", "exact"):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            rc, acked, err = faults.spawn_kill_mid_flush(
+                os.path.join(d, "victim"), policy="pp", mode=mode,
+                kill_at_write=2, device="cuda")
+            victim_s = time.perf_counter() - t0
+            check(rc == -signal.SIGKILL and acked > 0,
+                  f"(e) {mode}: victim exited {rc} after {acked} events: "
+                  f"{err[-2000:]}")
+            with DurableStore(os.path.join(d, "victim")) as rec_store:
+                ref = faults.run_reference("pp", mode, acked, device="cuda")
+                check(rec_store.data == ref.data and len(ref.data) > 0,
+                      f"(e) {mode}: the recovered store differs")
+                torn = rec_store.durable.torn_tails
+        emit(frontend={"step": f"e_crash_{mode}", "card": card,
+                       "rc": rc, "acked_events": acked, "torn_tails": torn,
+                       "rows": len(ref.data), "victim_s": victim_s,
+                       "recovered_bitwise": True})
+
+    # (f) checkpoint (a)'s final state, restore it onto the card, and
+    # repartition 1 -> 4 -> 1 shards
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, async_io=False)
+        t0 = time.perf_counter()
+        mgr.save(1, fe.state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = mgr.restore(fe.state, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    for name, x, y in zip(fe.state._fields, restored, fe.state):
+        check(x.device == device and bitwise_equal(x, y),
+              f"(f) restored {name} differs")
+    t0 = time.perf_counter()
+    grown = repartition_profile_state(restored, old_shards=1, new_shards=4,
+                                      device=device)
+    back = repartition_profile_state(grown, old_shards=4, new_shards=1,
+                                     num_keys=N_KEYS, device=device)
+    torch.cuda.synchronize()
+    repartition_s = time.perf_counter() - t0
+    e_local = -(-N_KEYS // 4)
+    ks = torch.arange(N_KEYS, device=device)
+    rows = (ks % 4) * e_local + ks // 4
+    for name, g, x, y in zip(fe.state._fields, grown, back, restored):
+        check(bitwise_equal(g[rows], y) and bitwise_equal(x, y),
+              f"(f) repartition 1 -> 4 -> 1: {name} differs")
+    emit(frontend={"step": "f_checkpoint", "card": card,
+                   "state_mb": sum(x.numel() * 4 for x in fe.state) / 1e6,
+                   "save_s": save_s, "restore_s": restore_s,
+                   "repartition_1_4_1_s": repartition_s,
+                   "restored_bitwise": True, "repartition_bitwise": True})
+    check_no_plain_steps("the frontend phase")
+    return {"keyed": keyed, "write_back": write_back}
+
+
 def window_pairs(Sq, Skv, causal, window):
     """(q, k) pairs the causal and window masks leave (positions from 0)."""
     q = np.arange(Sq)
@@ -1192,16 +1520,16 @@ def main() -> int:
     t0 = time.perf_counter()
     scoring = phase_scoring(device, stream)
     emit(scoring_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    frontend = phase_frontend(device, stream)
+    emit(frontend_phase_s=time.perf_counter() - t0)
     attn_worst, serving_times = phase_serving_kernels(device)
     serve_launches = phase_serve(device)
     phase_blocks(device)
     backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
     emit(sdpa_backends=backends)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_name_and_limit()
     emit(total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     rows4096, rows256 = times[4096], times[256]
@@ -1213,6 +1541,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "launches_scoring_keyed": scoring["keyed"],
         "launches_scoring_rows_entry": scoring["rows_entry"],
+        "launches_frontend_keyed": frontend["keyed"],
+        "launches_frontend_write_back": frontend["write_back"],
         "ms": t4096["ms"], "plain_ms": t4096["plain_ms"],
         "bound_ms": t4096["bound_ms"], "bound_by": t4096["bound_by"],
         "library_ms": None,

@@ -1,0 +1,236 @@
+"""Sharded, async, integrity-checked checkpointing with elastic restore
+(PyTorch port of ``repro.checkpoint.manager``).
+
+Layout (one directory per step):
+
+    <root>/step_000000420.tmp/     # written here first
+        manifest.json              # treedef, shapes, dtypes, hashes, step
+        arr_00000.npy ...          # one file per leaf
+    <root>/step_000000420/         # atomic rename on completion
+
+Durability contract: a checkpoint is valid iff the rename happened AND every
+leaf hash in the manifest verifies — torn writes (node failure mid-save)
+leave only a .tmp directory, which restore ignores and GC removes.  This is
+the single-host realization of the per-host-shard-files + manifest design in
+DESIGN.md §6; on a real pod each host writes its own address slice and the
+manifest unions them.
+
+Async: ``save(...)`` snapshots to host memory synchronously (cheap) and does
+file IO on a background thread, overlapping with the next training step —
+``wait()`` joins before the next save or at exit.
+
+Elastic restore: profile-store states saved under one shard count can be
+re-partitioned to another (``elastic.repartition_profile_state``).
+
+The on-disk format is the JAX package's, byte for byte in every file but
+the manifest's ``time``: leaves are flattened in JAX's order (dict keys
+sorted, tuples, lists and NamedTuples in field order, ``None`` holds no
+leaf), saved as ``.npy`` host arrays, hashed and described by the same
+manifest (its ``treedef`` string written in JAX's notation), so a
+checkpoint written by either package restores in the other.  Tensors are
+copied to the host with ``.cpu().numpy()`` at save and restored with
+``torch.as_tensor(..., device=)`` onto the template leaf's device (or the
+``device`` passed to ``restore``).
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _flatten(tree, leaves: list) -> str:
+    """Append ``tree``'s leaves to ``leaves`` in JAX's flatten order and
+    return its structure in JAX's ``PyTreeDef`` notation."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return "{" + ", ".join(f"{k!r}: {_flatten(tree[k], leaves)}"
+                               for k in keys) + "}"
+    if _is_namedtuple(tree):
+        inner = ", ".join(_flatten(x, leaves) for x in tree)
+        return (f"CustomNode(namedtuple[{type(tree).__name__}], "
+                f"[{inner}])")
+    if isinstance(tree, (tuple, list)):
+        inner = ", ".join(_flatten(x, leaves) for x in tree)
+        if isinstance(tree, list):
+            return f"[{inner}]"
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    leaves.append(tree)
+    return "*"
+
+
+def _unflatten(template, it):
+    """``template``'s structure with its leaves taken from ``it``."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        out = {k: _unflatten(template[k], it) for k in sorted(template)}
+        return type(template)((k, out[k]) for k in template)
+    if _is_namedtuple(template):
+        return type(template)(*(_unflatten(x, it) for x in template))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_unflatten(x, it) for x in template)
+    return next(it)
+
+
+def _tree_paths(tree):
+    leaves: list = []
+    treedef = f"PyTreeDef({_flatten(tree, leaves)})"
+    return leaves, treedef
+
+
+def _to_host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _hash(arr: np.ndarray) -> str:
+    return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    root: str
+    keep: int = 3                       # retained checkpoints (GC)
+    async_io: bool = True
+
+    def __post_init__(self):
+        os.makedirs(self.root, exist_ok=True)
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._pending: Optional[concurrent.futures.Future] = None
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, state: Any, *, extra: Optional[dict] = None
+             ) -> None:
+        """Snapshot now, write in background (if async_io)."""
+        self.wait()
+        leaves, treedef = _tree_paths(state)
+        host = [_to_host(x) for x in leaves]
+        treedef_str = treedef
+
+        def _write():
+            tmp = os.path.join(self.root, f"step_{step:09d}.tmp")
+            final = os.path.join(self.root, f"step_{step:09d}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            manifest = {
+                "step": step,
+                "treedef": treedef_str,
+                "extra": extra or {},
+                "leaves": [],
+                "time": time.time(),
+            }
+            for i, arr in enumerate(host):
+                name = f"arr_{i:05d}.npy"
+                np.save(os.path.join(tmp, name), arr)
+                manifest["leaves"].append({
+                    "file": name, "shape": list(arr.shape),
+                    "dtype": str(arr.dtype), "sha": _hash(arr)})
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            os.replace(tmp, final) if not os.path.exists(final) else None
+            if os.path.exists(tmp):          # final existed: overwrite
+                shutil.rmtree(final)
+                os.rename(tmp, final)
+            self._gc()
+
+        if self.async_io:
+            self._pending = self._pool.submit(_write)
+        else:
+            _write()
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    # ---------------------------------------------------------- restore
+    def steps(self) -> list:
+        out = []
+        for d in os.listdir(self.root):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.root, d,
+                                               "manifest.json")):
+                    out.append(int(d.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, template: Any, step: Optional[int] = None,
+                *, verify: bool = True, device=None) -> Any:
+        """Restore into the structure of ``template`` (shapes must match).
+
+        Tensor leaves of ``template`` come back as tensors of the
+        template's dtype on ``device`` (default: the template leaf's own
+        device); other leaves come back as host arrays.  Walks back
+        through older checkpoints if the newest is corrupt —
+        restart-from-latest-valid is the node-failure recovery path.
+        """
+        self.wait()
+        candidates = self.steps()[::-1] if step is None else [step]
+        last_err: Optional[Exception] = None
+        for s in candidates:
+            try:
+                return self._restore_one(template, s, verify, device)
+            except Exception as e:          # corrupt -> try older
+                last_err = e
+                continue
+        raise FileNotFoundError(
+            f"no valid checkpoint under {self.root}: {last_err}")
+
+    def _restore_one(self, template, step: int, verify: bool, device):
+        d = os.path.join(self.root, f"step_{step:09d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        leaves, treedef = _tree_paths(template)
+        if len(leaves) != len(manifest["leaves"]):
+            raise ValueError("tree structure changed between save and "
+                             "restore")
+        out = []
+        for t, meta in zip(leaves, manifest["leaves"]):
+            arr = np.load(os.path.join(d, meta["file"]))
+            if verify and _hash(arr) != meta["sha"]:
+                raise IOError(f"hash mismatch in {meta['file']}")
+            if isinstance(t, torch.Tensor):
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise ValueError(f"{meta['file']}: shape {arr.shape} "
+                                     f"!= template {tuple(t.shape)}")
+                arr = torch.as_tensor(
+                    arr, device=t.device if device is None else device
+                ).to(t.dtype)
+            out.append(arr)
+        return _unflatten(template, iter(out))
+
+    def restore_manifest(self, step: int) -> dict:
+        d = os.path.join(self.root, f"step_{step:09d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            return json.load(f)
+
+    # --------------------------------------------------------------- gc
+    def _gc(self):
+        steps = self.steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.root, f"step_{s:09d}"),
+                          ignore_errors=True)
+        for d in os.listdir(self.root):
+            if d.endswith(".tmp"):
+                full = os.path.join(self.root, d)
+                if time.time() - os.path.getmtime(full) > 3600:
+                    shutil.rmtree(full, ignore_errors=True)

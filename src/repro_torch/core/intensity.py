@@ -31,3 +31,13 @@ def update_v(v: torch.Tensor, last_t: torch.Tensor, t: torch.Tensor,
              h: float, contrib: torch.Tensor) -> torch.Tensor:
     """v(t) = contrib + exp(-(t - last_t)/h) v(last_t)."""
     return contrib + decay(t - last_t, h) * v
+
+
+def kde_intensity_dense(ts: torch.Tensor, t_eval: torch.Tensor,
+                        h: float) -> torch.Tensor:
+    """O(N·M) reference: lam_hat(t) = (1/h) * sum_{t_n <= t} exp(-(t-t_n)/h).
+
+    Used by tests/diagnostics only.
+    """
+    dt = t_eval[:, None] - ts[None, :]
+    return torch.where(dt >= 0, torch.exp(-dt / h), 0.0).sum(dim=1) / h

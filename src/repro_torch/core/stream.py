@@ -43,6 +43,7 @@ byte.  On the CPU the staging is plain host tensors (no streams).
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from typing import Callable, List, NamedTuple, Tuple, Union
@@ -179,6 +180,23 @@ def residency_step_for(step, collect_info: bool = True):
     return run
 
 
+@functools.lru_cache(maxsize=None)
+def _block_runner(cfg: EngineConfig, mode: str, collect_info: bool,
+                  exact_impl: str):
+    """One block-loop driver per (cfg, mode, flags)."""
+    return block_runner_for(make_step(cfg, mode, exact_impl=exact_impl),
+                            collect_info)
+
+
+@functools.lru_cache(maxsize=None)
+def _sink_step(cfg: EngineConfig, mode: str, collect_info: bool,
+               exact_impl: str):
+    """One per-flush-group sink-path driver per (cfg, mode, flags)."""
+    return sink_step_for(make_step(cfg, mode, exact_impl=exact_impl),
+                         collect_info)
+
+
+@functools.lru_cache(maxsize=None)
 def _residency_step(cfg: EngineConfig, mode: str, collect_info: bool,
                     exact_impl: str):
     """One hydrate + blocks + gather driver per (cfg, mode, flags): the
@@ -459,8 +477,7 @@ def run_stream(cfg: EngineConfig, state: ProfileState, keys, qs, ts,
             collect_info=collect_info, pipeline_depth=depth)
         info = _concat_groups(info, collect_info, len(cfg.taus), dev)
     elif sink is not None:
-        run_group = sink_step_for(make_step(cfg, mode, exact_impl=exact_impl),
-                                  collect_info)
+        run_group = _sink_step(cfg, mode, collect_info, exact_impl)
         group_of = group_source(dict(key=key_h.astype(np.int64), q=q_h,
                                      t=t_h, valid=valid_h), dev, depth)
         state, info = _drive_with_sink(
@@ -472,9 +489,8 @@ def run_stream(cfg: EngineConfig, state: ProfileState, keys, qs, ts,
         events = Event(*(torch.from_numpy(x).to(dev)
                          for x in (key_h.astype(np.int64), q_h, t_h,
                                    valid_h)))
-        step = make_step(cfg, mode, exact_impl=exact_impl)
-        state, info = block_runner_for(step, collect_info)(state, events,
-                                                           rng)
+        state, info = _block_runner(cfg, mode, collect_info, exact_impl)(
+            state, events, rng)
     if not collect_info:
         return state, info
     flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))[:n]

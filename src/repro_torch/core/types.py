@@ -25,14 +25,21 @@ NUM_AGG_COLS = 3
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda:0`` unless one is named."""
+    """The device an entry point runs on: ``cuda:0`` unless one is named.
+
+    A CUDA device named without an index (``"cuda"``) resolves to the
+    current card's index, the device its tensors report, so two entry
+    points given ``"cuda"`` and ``"cuda:0"`` agree."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda", 0)
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class Event(NamedTuple):

@@ -28,7 +28,7 @@ the blocks as data so the RNG guarantee holds for any slot budget.  The
 state is updated in place (``core.stream``).
 
 A ``mesh=`` raises ``NotImplementedError``: multi-GPU sharding is not
-ported yet (ROADMAP.md queue 1 item 9).
+ported yet (ROADMAP.md queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -98,7 +98,7 @@ def route_stream_blocks(shard: np.ndarray, local: np.ndarray, q: np.ndarray,
 def _mesh_unported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: multi-GPU sharding is "
-        f"ROADMAP.md queue 1 item 9; one card is one shard (mesh=None)")
+        f"ROADMAP.md queue 1 item 1; one card is one shard (mesh=None)")
 
 
 class ShardedFeatureEngine:

@@ -8,8 +8,9 @@ profile writes.  The scorer is a small MLP over the profile feature vector
 products are ``torch.matmul`` in float32 — callers comparing scores keep
 TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
-The open-loop serving frontend (``ScoringPipeline.serve``) is not ported
-yet (ROADMAP.md queue 1 item 8).
+Events reach the pipeline closed-loop (``process_stream``: pre-cut blocks
+as fast as the device takes them) or open-loop (``serve``: requests
+through the admission queue and dynamic batcher of ``serving.frontend``).
 """
 from __future__ import annotations
 
@@ -141,14 +142,58 @@ class ScoringPipeline:
                                       pipeline_depth=pipeline_depth)
 
     # --------------------------------------------------- online serving
-    def serve(self, *args, **kwargs):
-        """Open-loop serving through the admission queue and dynamic
-        batcher of ``serving.frontend`` — not ported yet."""
-        raise NotImplementedError(
-            "ScoringPipeline.serve needs serving/frontend.py (VirtualClock, "
-            "threaded admission, adaptive wait), which is not ported to "
-            "repro_torch yet: ROADMAP.md queue 1 item 8; use "
-            "process_stream")
+    def serve(self, keys, qs, ts, *, arrival_s=None, batch: int = 256,
+              max_wait_s: float = 0.005, clock=None, rng=None, sink=None,
+              residency=None, exact_impl: str = "compact",
+              admission: str = "serial", adaptive_wait: bool = False):
+        """Open-loop serving: the same events as ``process_stream``, but
+        arriving as *requests* through the admission queue + dynamic
+        batcher of ``serving.frontend`` (full batches dispatch
+        immediately, partials at the ``max_wait_s`` deadline, resident-set
+        misses prefetched ahead of dispatch), on the engine's device.
+
+        ``arrival_s`` is the admission-clock arrival of each event
+        (defaults to the event timestamps rebased to 0); ``clock`` is the
+        injectable time source — pass a ``serving.frontend.VirtualClock``
+        for deterministic tests, omit for wall-clock serving.
+        ``residency`` is an int slot budget or a prebuilt
+        ``streaming.residency.ResidencyMap`` (requires ``sink``).
+        Decisions, features and scores equal ``process_stream`` on the
+        same event sequence bit for bit: unconditionally in exact mode
+        (per-key sequential semantics make outputs batching-invariant),
+        and at matching dispatch boundaries in fast mode, whose
+        within-batch decoupling makes boundaries semantic — see
+        ``serving.frontend``.
+
+        ``admission``/``adaptive_wait`` pass through to
+        ``ServingFrontend``: ``admission="threaded"`` decouples the
+        batching brain from dispatch (same composition, same outputs),
+        ``adaptive_wait=True`` turns on the EWMA partial-batch deadline.
+
+        Returns a ``serving.frontend.ServeResult`` with per-request
+        outputs, latencies, the dispatch log and frontend stats.  The
+        serving state is fresh and owned by the frontend.  The caller owns
+        the sink lifecycle (flush/close), as in ``process_stream``.
+        """
+        from repro_torch.core.types import init_state
+        from repro_torch.serving.frontend import (ServingFrontend,
+                                                  make_requests)
+        from repro_torch.streaming.residency import ResidencyMap
+
+        cfg = self.engine.cfg
+        rmap = None
+        if residency is not None:
+            rmap = residency if isinstance(residency, ResidencyMap) \
+                else ResidencyMap(self.engine.num_entities, int(residency))
+        n_rows = rmap.n_slots if rmap is not None \
+            else self.engine.num_entities
+        state = init_state(n_rows, len(cfg.taus), device=self.engine.device)
+        fe = ServingFrontend(cfg, state, batch=batch, max_wait_s=max_wait_s,
+                             mode=self.engine.mode, exact_impl=exact_impl,
+                             rng=rng, clock=clock, sink=sink, residency=rmap,
+                             scorer=self.scorer, admission=admission,
+                             adaptive_wait=adaptive_wait)
+        return fe.run(make_requests(keys, qs, ts, arrival_s))
 
     def restart_from(self, sink):
         """Rebuild engine state from the sink's durable stores: persisted

@@ -308,3 +308,156 @@ def test_worker_on_card_matches_sink(cuda_device):
     assert trmw.launches - launches == len(keys)
     assert threefry.cuda_calls == rng_calls
     assert worker.store.data == _stored(sink)
+
+
+def _frontend_cfg(keys, batch, policy="pp_vr"):
+    rounds = max(int(np.bincount(keys[i:i + batch]).max())
+                 for i in range(0, len(keys), batch))
+    return EngineConfig(taus=(60.0, 3600.0, 86400.0), h=600.0,
+                        budget=0.002, alpha=1.0, policy=policy,
+                        exact_rounds=rounds)
+
+
+@pytest.mark.cuda
+def test_frontend_capacity_on_card_equals_closed_loop(cuda_device):
+    """``chip_smoke.py`` phase 8 (a) at a small size: a burst through the
+    frontend on the card (fast mode, all batches full, memory sink) equals
+    ``run_stream`` at the same batch on the card bit for bit — decisions,
+    features, scores, stored bytes — with one keyed launch a dispatch and
+    no plain step on a CUDA tensor."""
+    from repro_torch.kernels import ref, threefry
+    from repro_torch.serving import pipeline
+    from repro_torch.serving.frontend import (RealClock, ServingFrontend,
+                                              make_requests, score_at_width)
+    from repro_torch.streaming.persistence import WriteBehindSink
+
+    n_keys, batch = 512, 256
+    keys, qs, ts = _zipf_stream(8 * batch, n_keys)
+    cfg = _frontend_cfg(keys, batch)
+    scorer = pipeline.init_scorer(torch.Generator().manual_seed(0), 12,
+                                  device=cuda_device)
+    sink = WriteBehindSink(cfg, n_partitions=2, device=cuda_device)
+    fe = ServingFrontend(cfg, init_state(n_keys, 3, device=cuda_device),
+                         batch=batch, max_wait_s=2e-3, mode="fast",
+                         rng=prng_key(7), clock=RealClock(), sink=sink,
+                         scorer=scorer)
+    calls = threefry.cuda_calls + ref.gather_cuda_calls
+    launches = trmw.keyed_launches
+    res = fe.run(make_requests(keys, qs, ts, np.zeros(len(keys))))
+    assert res.stats.dispatches == res.stats.full_batches == 8
+    assert trmw.keyed_launches - launches == 8
+    assert threefry.cuda_calls + ref.gather_cuda_calls == calls
+    sink_c = WriteBehindSink(cfg, n_partitions=2, device=cuda_device)
+    _, info = run_stream(cfg, init_state(n_keys, 3, device=cuda_device),
+                         keys, qs, ts, batch=batch, mode="fast",
+                         rng=prng_key(7), sink=sink_c)
+    for name in ("z", "p", "lam_hat", "features"):
+        assert _bitwise(torch.from_numpy(getattr(res, name)),
+                        getattr(info, name)), name
+    want = np.concatenate([score_at_width(scorer, info.features[i:i + batch],
+                                          batch)
+                           for i in range(0, len(keys), batch)])
+    assert np.array_equal(res.scores.view(np.uint32), want.view(np.uint32))
+    assert _stored(sink) == _stored(sink_c)
+    assert np.all(res.latency_s > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["serial", "threaded"])
+def test_frontend_exact_on_card_under_partial_batches(cuda_device,
+                                                     admission):
+    """Phase 8 (c) at a small size: open-loop arrivals on the virtual
+    clock force partial batches padded with key 0 beside real key-0
+    events; exact mode on the card equals the exact ``run_stream`` on the
+    card bit for bit, serial or threaded admission (the threaded plane's
+    staging copies run on their own stream)."""
+    from repro_torch.serving.frontend import (ServingFrontend,
+                                              VirtualClock, make_requests)
+
+    n_keys, batch = 64, 64
+    keys, qs, ts = _zipf_stream(1500, n_keys, seed=2)
+    cfg = _frontend_cfg(keys, batch)
+    fe = ServingFrontend(cfg, init_state(n_keys, 3, device=cuda_device),
+                         batch=batch, max_wait_s=2.5e-3, mode="exact",
+                         rng=prng_key(7), clock=VirtualClock(),
+                         admission=admission)
+    res = fe.run(make_requests(keys, qs, ts, np.arange(1500) * 1e-4))
+    assert res.stats.deadline_batches > 0 and res.stats.padded_lanes > 0
+    _, info = run_stream(cfg, init_state(n_keys, 3, device=cuda_device),
+                         keys, qs, ts, batch=batch, mode="exact",
+                         rng=prng_key(7))
+    for name in ("z", "p", "lam_hat", "features"):
+        assert _bitwise(torch.from_numpy(getattr(res, name)),
+                        getattr(info, name)), name
+
+
+@pytest.mark.cuda
+def test_frontend_resident_threaded_on_card(cuda_device):
+    """Phase 8 (d) at a small size: a bounded resident set under threaded
+    admission (threaded sink, ``overflow="block"``) equals the dense
+    serial frontend on the card bit for bit, with prefetched
+    rehydrations in the run."""
+    from repro_torch.serving.frontend import (ServingFrontend,
+                                              VirtualClock, make_requests)
+    from repro_torch.streaming.persistence import WriteBehindSink
+    from repro_torch.streaming.residency import ResidencyMap
+
+    n_keys, batch = 512, 64
+    keys, qs, ts = _zipf_stream(4000, n_keys, seed=4)
+    cfg = _frontend_cfg(keys, batch)
+    arrivals = np.arange(4000) * 2e-4
+
+    def run(slots=None, admission="serial"):
+        sink = WriteBehindSink(cfg, n_partitions=3, device=cuda_device)
+        rmap = ResidencyMap(n_keys, slots) if slots else None
+        fe = ServingFrontend(cfg, init_state(slots or n_keys, 3,
+                                             device=cuda_device),
+                             batch=batch, max_wait_s=2.5e-3, mode="fast",
+                             rng=prng_key(7), clock=VirtualClock(),
+                             sink=sink, residency=rmap, admission=admission)
+        return fe.run(make_requests(keys, qs, ts, arrivals)), _stored(sink)
+
+    dense, dense_bytes = run()
+    res, res_bytes = run(slots=160, admission="threaded")
+    assert res.stats.prefetch_rehydrations > 0
+    for name in ("z", "p", "lam_hat", "features"):
+        assert np.array_equal(getattr(dense, name), getattr(res, name)), name
+    assert dense_bytes == res_bytes and dense_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+def test_kill_mid_flush_on_card(cuda_device, mode, tmp_path):
+    """Phase 8 (e): the SIGKILL victim runs on the card (it loads the
+    built kernel); the recovered store equals the card reference over the
+    acknowledged prefix byte for byte."""
+    import signal
+
+    from repro_torch.streaming import faults
+    from repro_torch.streaming.durable import DurableStore
+
+    d = str(tmp_path / "victim")
+    rc, acked, err = faults.spawn_kill_mid_flush(
+        d, policy="pp", mode=mode, kill_at_write=2, device="cuda")
+    assert rc == -signal.SIGKILL, f"victim exited {rc}: {err[-2000:]}"
+    assert acked > 0
+    with DurableStore(d) as rec:
+        ref = faults.run_reference("pp", mode, acked, device="cuda")
+        assert rec.data == ref.data and rec.data
+
+
+@pytest.mark.cuda
+def test_index_less_cuda_device_resolves_to_the_card(cuda_device):
+    """``device="cuda"`` and the state's own ``cuda:0`` name one device:
+    a sink and a state built from either spelling work together."""
+    from repro_torch.core.types import resolve_device
+    from repro_torch.streaming.persistence import WriteBehindSink
+
+    assert resolve_device("cuda") == cuda_device == resolve_device(None)
+    cfg = EngineConfig(taus=(60.0,), h=600.0, budget=0.01)
+    sink = WriteBehindSink(cfg, device="cuda")
+    run_stream(cfg, init_state(8, 1, device=cuda_device),
+               np.arange(8, dtype=np.int32), np.ones(8, np.float32),
+               np.arange(8, dtype=np.float32), batch=8, sink=sink)
+    assert sink.flush()["puts"] > 0
+    sink.close()

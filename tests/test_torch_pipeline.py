@@ -280,15 +280,38 @@ def test_engine_routing_and_layout_stats():
 
 
 def test_unported_mesh_and_serve_raise():
-    """A mesh and the serving frontend are not ported yet: both raise,
-    naming ROADMAP.md."""
+    """A mesh is not ported yet: it raises, naming ROADMAP.md.  The
+    serving frontend is: in exact mode ``serve`` (open-loop arrivals,
+    partial batches) equals ``process_stream`` bit for bit, scores
+    included."""
     cfg = EngineConfig(taus=(60.0,))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ShardedFeatureEngine(cfg, 8, mesh=object(), device="cpu")
-    pipe = pipeline.ScoringPipeline.build(ProfileSpec(windows=(60.0,)), 8,
-                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.serve(np.zeros(4, np.int32), np.zeros(4), np.zeros(4))
+    from repro_torch.serving.frontend import VirtualClock, score_at_width
+
+    keys, qs, ts = _stream(200)
+    spec = ProfileSpec(windows=(60.0, 3600.0), kde_bandwidth=600.0,
+                       write_budget_per_min=0.12, policy="pp_vr",
+                       variance_alpha=1.0)
+    rounds = max(int(np.bincount(keys[i:i + 16]).max())
+                 for i in range(0, 200, 16))
+    pipe = pipeline.ScoringPipeline.build(spec, N_KEYS, mode="exact",
+                                          device="cpu", exact_rounds=rounds)
+    pipe.scorer = pipeline.init_scorer(torch.Generator().manual_seed(1),
+                                       spec.feature_dim, device="cpu")
+    res = pipe.serve(keys, qs, ts, arrival_s=np.arange(200) * 1e-3,
+                     batch=16, max_wait_s=4e-3, clock=VirtualClock(),
+                     rng=ROOT)
+    assert res.stats.deadline_batches > 0
+    _, info = pipe.process_stream(pipe.init(), keys, qs, ts, rng=ROOT,
+                                  batch_per_shard=16)
+    for f in ("z", "p", "lam_hat", "features"):
+        assert np.array_equal(getattr(res, f).view(np.uint8),
+                              getattr(info, f).numpy().view(np.uint8)), f
+    want = np.concatenate([score_at_width(pipe.scorer,
+                                          info.features[i:i + 16], 16)
+                           for i in range(0, 200, 16)])
+    assert np.array_equal(res.scores.view(np.uint8), want.view(np.uint8))
 
 
 # ----------------------------------------------------------- scoring
