@@ -7,8 +7,8 @@ It builds the port's three CUDA kernels from this checkout's sources
 (``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
 for ``sm_90a``, all started together, into ``build/``), checks with
 ``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
-(tensor-core) instructions, then runs eight phases; any failure raises
-and the script exits non-zero.
+(tensor-core) instructions, then runs nine phases; any failure raises
+(in a rank too) and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
    version on the CPU (which the CPU tests hold bitwise to the JAX
@@ -104,13 +104,41 @@ and the script exits non-zero.
    4 -> 1 shards, bitwise.  The keyed kernel must launch once per fast
    dispatch; no plain step may run on a CUDA tensor.
 
+9. Sharded engine (it runs after phase 8, on phase 2's stream): the
+   same deployment as 4 ranks on ``cuda:0``, one process a shard, gloo
+   collectives on host tensors (NCCL refuses two ranks on one card),
+   started by ``distributed.spawn.run_ranks`` after the kernels are built
+   (ranks only load them), at ``batch_per_shard=1024`` (4 x 1024 = phase
+   2's block), 200,000 x 22 float32 rows a rank; the stream goes to the
+   ranks as memory-mapped ``.npy`` files.  (a) dense, fast, block
+   layout: the stream-order gather run (z and p bitwise, features within
+   1e-6 and the permuted state bitwise against the one-card engine on the
+   card fed the same routed blocks with global keys, on rank 0), then
+   the timed run with ``collect_info=False``: per-rank and aggregate
+   events/s and the ranks' start time; keyed launches on each rank equal
+   the global block count.  (b) exact mode on phase 3's prefix, block
+   (durable sink) and virtual layouts, ``exact_rounds`` the most events
+   of one key in a shard's block: decisions, state and store bytes
+   bitwise equal to phase 3's card run, ``4 + exact_rounds`` write-back
+   launches a block on each rank.  (c) (a) through a sink: dense, then
+   25,000 resident slots a rank (12.5 % in all) serial and at
+   ``pipeline_depth=2``, each bitwise equal to dense in z, features and
+   store bytes, with evictions and rehydrations.  (d) fresh ranks
+   ``hydrate_from_dir`` (b)'s durable partitions: persisted columns
+   bitwise equal to the live state; ``materialize_cold`` over every
+   touched key equals ``materialize``.  (e) (a)'s 4-shard state saved by
+   ``CheckpointManager(mesh=)``, restored onto 2 ranks and onto one card
+   through ``repartition_profile_state``, bitwise.  (f) (b)'s block run
+   on a 1-rank NCCL mesh (CUDA-tensor collectives): bitwise equal to
+   phase 3.  No rank runs a plain step on a CUDA tensor.
+
 After phase 6 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
 its default dispatch picked is named (matched by the kernels it
 launches).
 
-Earlier lines print JSON records (phase 8's carry the card's name and
-power limit); the line before the last is the kernel table, the last is
+Earlier lines print JSON records (phase 8's and 9's carry the card's name
+and power limit); the line before the last is the kernel table, the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits with code 2 and prints no result.
 """
@@ -160,6 +188,8 @@ WORKER_EVENTS = 16_384
 FE_BATCH, FE_WAIT_S = 256, 2e-3        # the JAX bench_serving.py defaults
 FE_EVENTS, FE_EXACT_EVENTS = PREFIX, 65_536
 FE_LOADS = (0.5, 0.8)                  # of phase 8 (a)'s capacity
+SHARDS, SHARD_BATCH = 4, 1024          # 4 x 1024 = phase 2's 4096
+SHARD_SLOTS, SHARD_TIMEOUT_S = N_SLOTS // 4, 600.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -644,6 +674,7 @@ def phase_parity(device, stream):
                        "keyed_write_back_launches": launched,
                        "writes": gw, "rows_stored": len(gb),
                        "bitwise": True, "cuda_s": gt, "cpu_s": ct})
+    exact_ref = (gs, gi, gb)      # phase 9 (b) and (f) hold to the card's
 
     # fast mode: two runs on the card give identical state
     fcfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp")
@@ -680,6 +711,7 @@ def phase_parity(device, stream):
     emit(parity_fast={"events": PREFIX, "runs_identical": True,
                       "step_decisions_bitwise": True,
                       "step_state_max_rel_diff": rel})
+    return exact_ref
 
 
 def bitwise_same_run(a, b, what):
@@ -1480,6 +1512,509 @@ def phase_blocks(device):
                  **out})
 
 
+# ------------------------------------------------ phase 9: sharded engine
+def shard_block_rounds(keys, shard, n, batch_per_shard):
+    """The most events of one key in one shard's block of the routed
+    stream: the ``exact_rounds`` of a sharded exact run."""
+    from repro_torch.features.engine import route_stream_blocks
+
+    packed, _, _, valid, _, n_blocks = route_stream_blocks(
+        shard, keys, keys, keys, n, batch_per_shard)
+    blk = np.repeat(np.arange(n_blocks, dtype=np.int64), n * batch_per_shard)
+    ids = blk[valid] * (int(keys.max()) + 1) + packed[valid]
+    return int(np.unique(ids, return_counts=True)[1].max())
+
+
+def flat_rows(eng, n_keys):
+    """Each global entity's row in the flat ``shard * E_local + local``
+    layout of ``eng``."""
+    shard, local = eng.route(np.arange(n_keys))
+    return shard.astype(np.int64) * eng.entities_per_shard + local
+
+
+def _p9_stream(p):
+    return tuple(np.load(p[f], mmap_mode="r") for f in ("key", "q", "t"))
+
+
+def _p9_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _p9_start(group, device):
+    """A common start line for the ranks' timed runs."""
+    from repro_torch.distributed import collectives
+    _p9_sync(device)
+    collectives.barrier(group)
+    return time.perf_counter()
+
+
+def _p9_host(st):
+    return [x.cpu().numpy() for x in st]
+
+
+def _p9_same_info(a, b, what, fields=("z", "p", "lam_hat", "features")):
+    for f in fields:
+        check(bitwise_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} differs")
+
+
+def _p9_dense_vs_one_card(eng, st, info, keys, qs, ts, p):
+    """(a)'s parity, on rank 0: the one-card engine on the card, fed the
+    same routed blocks with global keys; z and p bitwise, features within
+    1e-6, state bitwise after the layout's permutation."""
+    from repro_torch.core import Event, init_state, make_step, prng_key
+    from repro_torch.distributed import collectives
+    from repro_torch.features.engine import route_stream_blocks
+
+    n, B, dev = eng.n_shards, p["batch"], eng.device
+    full = [collectives.gather_rows(x, eng.group) for x in st]
+    if eng.shard != 0:
+        return None
+    shard, _ = eng.route(np.asarray(keys))
+    gk, gq, gt, gv, slot, n_blocks = route_stream_blocks(
+        shard, np.asarray(keys), np.asarray(qs), np.asarray(ts), n, B)
+    blocks = [torch.from_numpy(x.reshape(n_blocks, n * B)).to(dev)
+              for x in (gk.astype(np.int64), gq, gt, gv)]
+    step = make_step(eng.cfg, "fast")
+    ref = init_state(p["n_keys"], len(eng.cfg.taus), device=dev)
+    outs = []
+    for b in range(n_blocks):
+        ref, o = step(ref, Event(*(x[b] for x in blocks)), prng_key(0))
+        outs.append(o)
+    idx = torch.from_numpy(slot).to(dev)
+    flat = lambda f: torch.stack([getattr(o, f) for o in outs]).reshape(
+        (n_blocks * n * B,) + tuple(getattr(outs[0], f).shape[1:]))[idx]
+    for f in ("z", "p"):
+        check(bitwise_equal(getattr(info, f), flat(f)),
+              f"(a) vs one card: {f} differs")
+    err = max_abs_err(info.features, flat("features"))
+    check(err <= 1e-6, f"(a) vs one card: features differ by {err}")
+    perm = flat_rows(eng, p["n_keys"])
+    for name, a, b in zip(st._fields, full, _p9_host(ref)):
+        check(np.array_equal(a[perm].view(np.uint8), b.view(np.uint8)),
+              f"(a) vs one card: state {name} differs")
+    return {"features_max_abs_err": err, "state_bitwise": True,
+            "z_p_bitwise": True}
+
+
+def phase9_ranks(mesh, p):
+    """One rank of phase 9's main spawn: (a) dense, (c) resident, (b)
+    exact and the (e) checkpoint save; it checks what it can see and
+    returns its records."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import EngineConfig, prng_key
+    from repro_torch.features.engine import ShardedFeatureEngine
+    from repro_torch.kernels import thinning_rmw as trmw
+    from repro_torch.streaming.residency import ResidencyMap
+
+    t_enter = time.time()
+    keys, qs, ts = _p9_stream(p)
+    B, G, n_keys = p["batch"], p["sink_group"], p["n_keys"]
+    cfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp")
+    eng = ShardedFeatureEngine(cfg, n_keys, mesh=mesh, mode="fast")
+    dev, group, r = eng.device, eng.group, eng.shard
+    stats = eng.stream_layout_stats(keys, B)
+    n_blocks = stats["n_blocks"]
+    own = int(np.count_nonzero(eng.route(np.asarray(keys))[0] == r))
+    rec = {"rank": r, "t_enter": t_enter, "device": str(dev),
+           "events_own": own, "blocks": n_blocks}
+    w = p["warm"]
+    eng.run_stream(eng.init_state(), keys[:w], qs[:w], ts[:w],
+                   batch_per_shard=B, rng=prng_key(0), collect_info=False)
+
+    # (a) dense, fast, block layout: the stream-order gather run first
+    reset_counts()                      # the sharded main path starts here
+    t0 = _p9_start(group, dev)
+    st, info = eng.run_stream(eng.init_state(), keys, qs, ts,
+                              batch_per_shard=B, rng=prng_key(0))
+    _p9_sync(dev)
+    rec["gather_run_s"] = time.perf_counter() - t0
+    rec["keyed_a"] = trmw.keyed_launches
+    check(trmw.keyed_launches == n_blocks,
+          f"rank {r}: {trmw.keyed_launches} keyed launches for {n_blocks} "
+          f"blocks")
+    check(info.z.shape == (len(keys),) and bool(
+        torch.isfinite(info.features).all()), "(a): bad stream-order info")
+    rec["parity_a"] = _p9_dense_vs_one_card(eng, st, info, keys, qs, ts, p)
+    writes = int(info.writes)
+    del info
+    reset_counts()
+    t0 = _p9_start(group, dev)
+    st2, wr = eng.run_stream(eng.init_state(), keys, qs, ts,
+                             batch_per_shard=B, rng=prng_key(0),
+                             collect_info=False)
+    _p9_sync(dev)
+    rec["run_s"] = time.perf_counter() - t0
+    rec["keyed_timed"] = trmw.keyed_launches
+    check(trmw.keyed_launches == n_blocks,
+          f"rank {r}: {trmw.keyed_launches} keyed launches in the timed run")
+    check(int(wr.sum()) == writes, "(a): the two runs' writes differ")
+    for name, a, b in zip(st._fields, st, st2):
+        check(bitwise_equal(a, b), f"(a): the two runs' {name} differ")
+    del st2
+    rec["writes_a"] = writes
+    # (e) save (a)'s 4-shard state: rank 0 gathers and writes
+    t0 = time.perf_counter()
+    CheckpointManager(p["ckpt"], async_io=False).save(1, st, mesh=mesh)
+    rec["ckpt_save_s"] = time.perf_counter() - t0
+    np.save(os.path.join(p["dir"], f"state_a-{r}.npy"),
+            np.concatenate([x.reshape(len(x), -1) for x in _p9_host(st)],
+                           axis=1))
+    del st
+
+    # (c) the same run through a sink: dense, resident serial, depth 2
+    runs = {}
+    for name, slots, depth in (("dense_sink", None, 1),
+                               ("resident", p["slots"], 1),
+                               ("resident_depth2", p["slots"], 2)):
+        sink = eng.make_sink()
+        maps = None if slots is None else [
+            ResidencyMap(eng.num_entities, slots) for _ in range(SHARDS)]
+        before = trmw.keyed_launches
+        t0 = _p9_start(group, dev)
+        _, inf = eng.run_stream(
+            eng.init_state() if slots is None
+            else eng.init_resident_state(slots), keys, qs, ts,
+            batch_per_shard=B, rng=prng_key(0), sink=sink, sink_group=G,
+            residency=maps, pipeline_depth=depth)
+        _p9_sync(dev)
+        dev_s = time.perf_counter() - t0
+        snap = sink.flush()
+        wall = time.perf_counter() - t0
+        data = dict(sink.stores[0].data)
+        sink.close()
+        launched = trmw.keyed_launches - before
+        check(launched == n_blocks,
+              f"(c) {name}: {launched} keyed launches for {n_blocks}")
+        rr = {"wall_s": wall, "device_done_s": dev_s,
+              "keyed": launched, "puts": snap["puts"],
+              "gets": snap["gets"], "rows": len(data)}
+        if maps is not None:
+            rs = maps[r].stats.snapshot()
+            touched = len(np.unique(np.asarray(keys)[
+                eng.route(np.asarray(keys))[0] == r]))
+            rr.update(residency=rs, touched_keys=touched,
+                      rehydrations=rs["misses"] - touched)
+            check(rs["evictions"] > 0 and rs["misses"] > touched
+                  and rs["splits"] == 0,
+                  f"(c) {name}: the resident run did not churn: {rs}")
+            _p9_same_info(runs["dense_sink"]["info"], inf,
+                          f"(c) {name} vs dense", ("z", "features"))
+            check(data == runs["dense_sink"]["data"],
+                  f"(c) {name}: store bytes differ from dense")
+        runs[name] = {"info": inf, "data": data, "rec": rr}
+    rec["c"] = {k: v["rec"] for k, v in runs.items()}
+    del runs
+
+    # (b) exact mode on the prefix, block (durable sink) and virtual
+    n = p["prefix"]
+    pk, pq, pt = (np.asarray(x[:n]) for x in (keys, qs, ts))
+    rec["b"] = {}
+    for layout in ("block", "virtual"):
+        rounds = p["rounds_b"][layout]
+        bcfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp_vr",
+                            alpha=1.0, exact_rounds=rounds)
+        beng = ShardedFeatureEngine(
+            bcfg, n_keys, mesh=mesh, mode="exact", layout=layout,
+            key_weights=np.bincount(pk, minlength=n_keys))
+        sink = beng.make_sink(backend="durable",
+                              store_dir=p["dir_b"]) \
+            if layout == "block" else beng.make_sink()
+        nb = beng.stream_layout_stats(pk, B)["n_blocks"]
+        before = trmw.keyed_launches
+        t0 = _p9_start(group, dev)
+        bst, binf = beng.run_stream(beng.init_state(), pk, pq, pt,
+                                    batch_per_shard=B, rng=prng_key(7),
+                                    sink=sink)
+        sink.flush()
+        _p9_sync(dev)
+        wall = time.perf_counter() - t0
+        launched = trmw.keyed_launches - before
+        want = nb * (-(-B // 256) + rounds)
+        check(launched == want, f"(b) {layout}: {launched} write-back "
+              f"launches for {want} chunks")
+        data = dict(sink.stores[0].data)
+        sink.close()
+        host = _p9_host(bst)
+        if layout == "block":
+            np.savez(os.path.join(p["dir"], f"live_b-{r}.npz"), *host)
+        rec["b"][layout] = {
+            "state": host, "bytes": data, "wall_s": wall, "blocks": nb,
+            "write_back": launched, "exact_rounds": rounds,
+            "info": [getattr(binf, f).cpu().numpy() for f in
+                     ("z", "p", "lam_hat", "features")] if r == 0 else None,
+            "writes": int(binf.writes),
+            "row_of_key": flat_rows(beng, n_keys)}
+    check_no_plain_steps(f"phase 9 rank {r}")
+    return rec
+
+
+def phase9_restart_ranks(mesh, p):
+    """(d) in fresh ranks: rebuild each rank's rows from its durable
+    partition; ``materialize_cold`` against ``materialize``."""
+    from repro_torch.core import EngineConfig, state_from_numpy
+    from repro_torch.features.engine import ShardedFeatureEngine
+
+    t_enter = time.time()
+    n_keys, pk = p["n_keys"], np.asarray(_p9_stream(p)[0][:p["prefix"]])
+    cfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp_vr",
+                       alpha=1.0, exact_rounds=p["rounds_b"]["block"])
+    eng = ShardedFeatureEngine(cfg, n_keys, mesh=mesh, mode="exact")
+    r, dev = eng.shard, eng.device
+    with np.load(os.path.join(p["dir"], f"live_b-{r}.npz")) as z:
+        live = state_from_numpy(*(z[f"arr_{i}"] for i in range(5)),
+                                device=dev)
+    t0 = time.perf_counter()
+    hyd = eng.hydrate_from_dir(p["dir_b"])
+    _p9_sync(dev)
+    hydrate_s = time.perf_counter() - t0
+    for name in ("last_t", "v_f", "agg"):
+        check(bitwise_equal(getattr(hyd, name), getattr(live, name)),
+              f"(d) rank {r}: hydrated {name} differs from the live state")
+    touched = np.unique(pk)
+    t_s = float(np.asarray(_p9_stream(p)[2][p["prefix"] - 1])) + 1.0
+    warm = eng.materialize(live, touched, t_s)
+    stores = eng.reopen_stores(p["dir_b"])
+    t0 = time.perf_counter()
+    cold = eng.materialize_cold(stores, touched, t_s)
+    _p9_sync(dev)
+    cold_s = time.perf_counter() - t0
+    recovery_s = sum(s.durable.recovery_s for s in stores)
+    for s in stores:
+        s.close()
+    check(bitwise_equal(warm, cold) and bool(torch.isfinite(warm).all()),
+          f"(d) rank {r}: materialize_cold differs from materialize")
+    return {"rank": r, "t_enter": t_enter, "hydrate_s": hydrate_s,
+            "cold_s": cold_s, "recovery_s": recovery_s,
+            "keys_scored": int(touched.size)}
+
+
+def phase9_restore_ranks(mesh, p):
+    """(e) onto ``mesh.size()`` ranks: rank 0 reads the 4-shard checkpoint,
+    every rank gets its rows of the new layout."""
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        repartition_profile_state)
+    from repro_torch.core import EngineConfig, init_state
+
+    full, t0 = None, time.perf_counter()
+    if mesh.get_local_rank("data") == 0:
+        full = CheckpointManager(p["ckpt"], async_io=False).restore(
+            init_state(p["n_keys"], len(EngineConfig().taus),
+                       device="cpu"))
+    st = repartition_profile_state(full, old_shards=SHARDS,
+                                   new_shards=mesh.size(),
+                                   num_keys=p["n_keys"], mesh=mesh)
+    _p9_sync(st.last_t.device)
+    return {"state": _p9_host(st), "s": time.perf_counter() - t0,
+            "device": str(st.last_t.device)}
+
+
+def phase9_nccl_rank(mesh, p):
+    """(f) (b)'s block run on a 1-rank NCCL mesh: the collectives move
+    CUDA tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.core import EngineConfig, prng_key
+    from repro_torch.features.engine import ShardedFeatureEngine
+
+    check(dist.get_backend() == p["f_backend"], "(f): not an NCCL group")
+    n = p["prefix"]
+    pk, pq, pt = (np.asarray(x[:n]) for x in _p9_stream(p))
+    cfg = EngineConfig(h=3600.0, budget=0.1 / 3600.0, policy="pp_vr",
+                       alpha=1.0, exact_rounds=p["rounds_b"]["block"])
+    eng = ShardedFeatureEngine(cfg, p["n_keys"], mesh=mesh, mode="exact")
+    sink = eng.make_sink()
+    st, info = eng.run_stream(eng.init_state(), pk, pq, pt,
+                              batch_per_shard=p["batch"], rng=prng_key(7),
+                              sink=sink)
+    sink.flush()
+    sink.close()
+    check(info.z.device == eng.device, "(f): info left the card")
+    return {"state": _p9_host(st), "bytes": dict(sink.stores[0].data),
+            "info": [getattr(info, f).cpu().numpy() for f in
+                     ("z", "p", "lam_hat", "features")]}
+
+
+def phase_sharded(device, stream, exact_ref):
+    """Phase 9: the sharded feature engine as 4 gloo ranks on one card."""
+    import tempfile
+
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        repartition_profile_state)
+    from repro_torch.core import EngineConfig, init_state
+    from repro_torch.distributed import rebalance
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.features.engine import stream_block_counts
+
+    card = card_name_and_limit()
+    dev = str(device) if device.type != "cuda" \
+        else f"cuda:{device.index or 0}"
+    with tempfile.TemporaryDirectory() as d:
+        p = {f: os.path.join(d, f"{f}.npy") for f in ("key", "q", "t")}
+        for f in ("key", "q", "t"):
+            np.save(p[f], getattr(stream, f))
+        keys = stream.key
+        pk = keys[:PREFIX]
+        vlay = rebalance.build_layout(
+            N_KEYS, SHARDS, key_weights=np.bincount(pk, minlength=N_KEYS))
+        rounds_b = {
+            "block": shard_block_rounds(pk, pk % SHARDS, SHARDS,
+                                        SHARD_BATCH),
+            "virtual": shard_block_rounds(
+                pk, np.asarray(vlay.shard_of_key)[pk], SHARDS, SHARD_BATCH)}
+        p.update(dir=d, dir_b=os.path.join(d, "stores_b"),
+                 ckpt=os.path.join(d, "ckpt"), n_keys=N_KEYS,
+                 batch=SHARD_BATCH, sink_group=SINK_GROUP,
+                 slots=SHARD_SLOTS, prefix=PREFIX,
+                 warm=min(65_536, len(keys) // 4), rounds_b=rounds_b,
+                 f_backend="nccl" if device.type == "cuda" else "gloo")
+        t_spawn = time.time()
+        ranks = run_ranks(phase9_ranks, SHARDS, p, backend="gloo",
+                          device=dev, timeout_s=SHARD_TIMEOUT_S)
+        spawn_s = time.time() - t_spawn
+        start_s = max(x["t_enter"] for x in ranks) - t_spawn
+        n = len(keys)
+        # what the virtual layout would step (host count, for the record)
+        full_lay = rebalance.build_layout(
+            N_KEYS, SHARDS, key_weights=np.bincount(keys, minlength=N_KEYS))
+        _, blocks_virtual = stream_block_counts(
+            np.asarray(full_lay.shard_of_key)[keys], SHARDS, SHARD_BATCH)
+        run_s = max(x["run_s"] for x in ranks)
+        gather_s = max(x["gather_run_s"] for x in ranks)
+        n_blocks = ranks[0]["blocks"]
+        emit(sharded={
+            "step": "a_dense", "card": card, "ranks": SHARDS,
+            "backend": "gloo", "device": dev, "events": n, "keys": N_KEYS,
+            "batch_per_shard": SHARD_BATCH, "blocks": n_blocks,
+            "rows_per_rank": -(-N_KEYS // SHARDS),
+            "rank_start_s": start_s, "spawn_total_s": spawn_s,
+            "events_per_s": n / run_s, "run_s": run_s,
+            "padded_fraction": 1.0 - n / (n_blocks * SHARDS * SHARD_BATCH),
+            "blocks_virtual_layout": blocks_virtual,
+            "per_rank": [{"rank": x["rank"], "events": x["events_own"],
+                          "run_s": x["run_s"],
+                          "events_per_s": x["events_own"] / x["run_s"],
+                          "keyed_launches": x["keyed_timed"]}
+                         for x in ranks],
+            "gather_run_s": gather_s,
+            "gather_run_events_per_s": n / gather_s,
+            "writes": ranks[0]["writes_a"],
+            "parity_vs_one_card": ranks[0]["parity_a"],
+            "ckpt_save_s": ranks[0]["ckpt_save_s"]})
+        for step in ("dense_sink", "resident", "resident_depth2"):
+            recs = [x["c"][step] for x in ranks]
+            wall = max(x["wall_s"] for x in recs)
+            emit(sharded={
+                "step": f"c_{step}", "card": card, "events": n,
+                "slots_per_rank": None if step == "dense_sink"
+                else SHARD_SLOTS, "sink_group": SINK_GROUP,
+                "events_per_s": n / wall, "wall_s": wall,
+                "puts": sum(x["puts"] for x in recs),
+                "gets_per_event": sum(x["gets"] for x in recs) / n,
+                "evictions": sum(x.get("residency", {}).get("evictions", 0)
+                                 for x in recs),
+                "rehydrations": sum(x.get("rehydrations", 0) for x in recs),
+                "bitwise_vs_dense_sink": step != "dense_sink"})
+
+        # (b) against phase 3's single-card exact run
+        ref_state, ref_info, ref_bytes = exact_ref
+        for layout in ("block", "virtual"):
+            recs = [x["b"][layout] for x in ranks]
+            full = [np.concatenate([x["state"][i] for x in recs])
+                    for i in range(5)]
+            perm = recs[0]["row_of_key"]
+            for name, a, b in zip(ref_state._fields, full, ref_state):
+                check(np.array_equal(a[perm].view(np.uint8),
+                                     b.view(np.uint8)),
+                      f"(b) {layout}: state {name} differs from phase 3")
+            for name, a, b in zip(("z", "p", "lam_hat", "features"),
+                                  recs[0]["info"], ref_info):
+                check(np.array_equal(a.view(np.uint8),
+                                     b.numpy().view(np.uint8)),
+                      f"(b) {layout}: {name} differs from phase 3")
+            merged = {}
+            for x in recs:
+                merged.update(x["bytes"])
+            check(merged == ref_bytes and len(merged) > 0,
+                  f"(b) {layout}: store bytes differ from phase 3")
+            emit(sharded={
+                "step": f"b_exact_{layout}", "card": card,
+                "events": PREFIX, "blocks": recs[0]["blocks"],
+                "exact_rounds": recs[0]["exact_rounds"],
+                "write_back_launches": [x["write_back"] for x in recs],
+                "wall_s": max(x["wall_s"] for x in recs),
+                "writes": recs[0]["writes"], "rows_stored": len(merged),
+                "bitwise_vs_phase3": True})
+        write_back = sum(x["b"][lay]["write_back"] for x in ranks
+                         for lay in ("block", "virtual"))
+        keyed = sum(x["keyed_a"] + x["keyed_timed"]
+                    + sum(x["c"][s]["keyed"] for s in x["c"]) for x in ranks)
+
+        # (d) fresh ranks rebuild from the durable partitions
+        t_spawn = time.time()
+        rest = run_ranks(phase9_restart_ranks, SHARDS, p, backend="gloo",
+                         device=dev, timeout_s=SHARD_TIMEOUT_S)
+        emit(sharded={
+            "step": "d_restart", "card": card,
+            "rank_start_s": max(x["t_enter"] for x in rest) - t_spawn,
+            "hydrate_s": max(x["hydrate_s"] for x in rest),
+            "cold_s": max(x["cold_s"] for x in rest),
+            "recovery_s": [x["recovery_s"] for x in rest],
+            "keys_scored": rest[0]["keys_scored"],
+            "hydrated_bitwise": True, "cold_bitwise": True})
+
+        # (e) the 4-shard checkpoint onto 2 ranks and onto one card
+        state_a = np.concatenate(
+            [np.load(os.path.join(d, f"state_a-{r}.npy"))
+             for r in range(SHARDS)])
+        e_local = -(-N_KEYS // SHARDS)
+        ks = np.arange(N_KEYS)
+        one_card = state_a[(ks % SHARDS) * e_local + ks // SHARDS]
+        two = run_ranks(phase9_restore_ranks, 2, p, backend="gloo",
+                        device=dev, timeout_s=SHARD_TIMEOUT_S)
+        e2 = -(-N_KEYS // 2)
+        got2 = np.concatenate([np.concatenate(
+            [x.reshape(len(x), -1) for x in t["state"]], axis=1)
+            for t in two])
+        check(np.array_equal(got2[(ks % 2) * e2 + ks // 2].view(np.uint8),
+                             one_card.view(np.uint8)),
+              "(e) 4 -> 2 ranks: restored rows differ")
+        t0 = time.perf_counter()
+        mono = repartition_profile_state(
+            CheckpointManager(p["ckpt"], async_io=False).restore(
+                init_state(N_KEYS, len(EngineConfig().taus),
+                           device="cpu")),
+            old_shards=SHARDS, new_shards=1, num_keys=N_KEYS, device=device)
+        _p9_sync(device)
+        one_s = time.perf_counter() - t0
+        got1 = np.concatenate([x.cpu().numpy().reshape(N_KEYS, -1)
+                               for x in mono], axis=1)
+        check(np.array_equal(got1.view(np.uint8), one_card.view(np.uint8)),
+              "(e) 4 -> 1: restored state differs")
+        emit(sharded={"step": "e_checkpoint", "card": card,
+                      "state_mb": state_a.nbytes / 1e6,
+                      "save_4_ranks_s": ranks[0]["ckpt_save_s"],
+                      "restore_2_ranks_s": max(t["s"] for t in two),
+                      "restore_2_devices": [t["device"] for t in two],
+                      "restore_1_card_s": one_s, "bitwise": True})
+
+        # (f) (b)'s block run on a 1-rank NCCL mesh
+        (nc,) = run_ranks(phase9_nccl_rank, 1, p, backend=p["f_backend"],
+                          device=dev, timeout_s=SHARD_TIMEOUT_S)
+        for name, a, b in zip(ref_state._fields, nc["state"], ref_state):
+            check(np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+                  f"(f) NCCL: state {name} differs from mesh=None")
+        for name, a, b in zip(("z", "p", "lam_hat", "features"),
+                              nc["info"], ref_info):
+            check(np.array_equal(a.view(np.uint8), b.numpy().view(np.uint8)),
+                  f"(f) NCCL: {name} differs from mesh=None")
+        check(nc["bytes"] == ref_bytes, "(f) NCCL: store bytes differ")
+        emit(sharded={"step": "f_nccl_1_rank", "card": card,
+                      "bitwise_vs_mesh_none": True})
+    return {"keyed": keyed, "write_back": write_back}
+
+
 def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
     """A ``kernels`` line entry: times at the batch-1 serving shape, the
     batch-2 ones (the path's own batch) beside them."""
@@ -1516,13 +2051,18 @@ def main() -> int:
     emit(workload={"regime": "iiot", "keys": N_KEYS, "events": N_EVENTS,
                    "gen_s": time.perf_counter() - t0})
     launches = phase_stream(device, stream)
-    phase_parity(device, stream)
+    exact_ref = phase_parity(device, stream)
     t0 = time.perf_counter()
     scoring = phase_scoring(device, stream)
     emit(scoring_phase_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     frontend = phase_frontend(device, stream)
     emit(frontend_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sharded = phase_sharded(device, stream, exact_ref)
+    emit(sharded_phase_s=time.perf_counter() - t0,
+         card=card_name_and_limit())
+    del exact_ref
     attn_worst, serving_times = phase_serving_kernels(device)
     serve_launches = phase_serve(device)
     phase_blocks(device)
@@ -1543,6 +2083,8 @@ def main() -> int:
         "launches_scoring_rows_entry": scoring["rows_entry"],
         "launches_frontend_keyed": frontend["keyed"],
         "launches_frontend_write_back": frontend["write_back"],
+        "launches_sharded_keyed": sharded["keyed"],
+        "launches_sharded_write_back": sharded["write_back"],
         "ms": t4096["ms"], "plain_ms": t4096["plain_ms"],
         "bound_ms": t4096["bound_ms"], "bound_by": t4096["bound_by"],
         "library_ms": None,

@@ -22,6 +22,14 @@ file IO on a background thread, overlapping with the next training step —
 Elastic restore: profile-store states saved under one shard count can be
 re-partitioned to another (``elastic.repartition_profile_state``).
 
+Sharded states (``save``/``restore`` with ``mesh=``, the sharded feature
+engine's per-rank rows): ``save`` gathers every tensor leaf's rows to
+rank 0 in rank order — the flat ``shard * E_local + local`` order of the
+JAX engine's global arrays (``distributed.collectives.gather_rows``) —
+and rank 0 alone writes the full logical arrays, so the directory is the
+one the JAX package writes for its sharded state.  ``restore`` onto a
+mesh reads on rank 0 alone and scatters each rank its rows.
+
 The on-disk format is the JAX package's, byte for byte in every file but
 the manifest's ``time``: leaves are flattened in JAX's order (dict keys
 sorted, tuples, lists and NamedTuples in field order, ``None`` holds no
@@ -115,9 +123,26 @@ class CheckpointManager:
         self._pending: Optional[concurrent.futures.Future] = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state: Any, *, extra: Optional[dict] = None
-             ) -> None:
-        """Snapshot now, write in background (if async_io)."""
+    def save(self, step: int, state: Any, *, extra: Optional[dict] = None,
+             mesh=None) -> None:
+        """Snapshot now, write in background (if async_io).
+
+        ``mesh``: ``state`` is this rank's shard of a sharded state (every
+        tensor leaf split along its first dim); a collective — every rank
+        calls it, rank 0 gathers the full arrays and writes them, the
+        others return once their rows are sent.
+        """
+        if mesh is not None:
+            from repro_torch.distributed.collectives import gather_rows
+            from repro_torch.launch.mesh import shard_of_mesh
+
+            _, shard, group = shard_of_mesh(mesh)
+            leaves, _ = _tree_paths(state)
+            full = [gather_rows(x, group) if isinstance(x, torch.Tensor)
+                    else x for x in leaves]
+            if shard != 0:
+                return
+            state = _unflatten(state, iter(full))
         self.wait()
         leaves, treedef = _tree_paths(state)
         host = [_to_host(x) for x in leaves]
@@ -174,7 +199,7 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                *, verify: bool = True, device=None) -> Any:
+                *, verify: bool = True, device=None, mesh=None) -> Any:
         """Restore into the structure of ``template`` (shapes must match).
 
         Tensor leaves of ``template`` come back as tensors of the
@@ -182,7 +207,15 @@ class CheckpointManager:
         device); other leaves come back as host arrays.  Walks back
         through older checkpoints if the newest is corrupt —
         restart-from-latest-valid is the node-failure recovery path.
+
+        ``mesh``: ``template`` is this rank's shard (as for ``save``); a
+        collective — rank 0 reads the full arrays (each ``n`` times the
+        template's rows) and every rank gets its rows, the other leaves
+        as rank 0 read them.  A failure on rank 0 raises on every rank.
         """
+        if mesh is not None:
+            return self._restore_sharded(template, step, verify, device,
+                                         mesh)
         self.wait()
         candidates = self.steps()[::-1] if step is None else [step]
         last_err: Optional[Exception] = None
@@ -194,6 +227,42 @@ class CheckpointManager:
                 continue
         raise FileNotFoundError(
             f"no valid checkpoint under {self.root}: {last_err}")
+
+    def _restore_sharded(self, template, step, verify, device, mesh):
+        from repro_torch.distributed import collectives
+        from repro_torch.launch.mesh import shard_of_mesh
+
+        n, shard, group = shard_of_mesh(mesh)
+        leaves, _ = _tree_paths(template)
+        host = err = None
+        if shard == 0:
+            full = [torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                                dtype=x.dtype)
+                    if isinstance(x, torch.Tensor) else x for x in leaves]
+            try:
+                got, _ = _tree_paths(self.restore(
+                    _unflatten(template, iter(full)), step, verify=verify,
+                    device="cpu"))
+                host = [x.numpy() if isinstance(x, torch.Tensor) else x
+                        for x in got]
+            except Exception as e:           # raised on every rank below
+                err = f"{type(e).__name__}: {e}"
+        others = collectives.broadcast_object(
+            (err, None if host is None else
+             [None if isinstance(t, torch.Tensor) else h
+              for t, h in zip(leaves, host)]), group)
+        if others[0] is not None:
+            raise FileNotFoundError(f"sharded restore on rank 0 failed: "
+                                    f"{others[0]}")
+        out = []
+        for i, t in enumerate(leaves):
+            if isinstance(t, torch.Tensor):
+                like = torch.empty_like(t, device=device or t.device)
+                out.append(collectives.scatter_rows(
+                    None if host is None else host[i], like, group))
+            else:
+                out.append(others[1][i])
+        return _unflatten(template, iter(out))
 
     def _restore_one(self, template, step: int, verify: bool, device):
         d = os.path.join(self.root, f"step_{step:09d}")

@@ -1,34 +1,48 @@
-"""Entity-partitioned feature engine on one card (PyTorch).
+"""Entity-partitioned (sharded) feature engine (PyTorch).
 
-The counterpart of ``repro.features.engine``'s ``ShardedFeatureEngine``
-without a mesh: one card is one shard, which owns every entity.  The
-engine holds no decision math of its own — it routes events under its
-layout and composes the core step, so every decision + read-modify-write
-runs through the same keyed ``thinning_rmw`` launch as ``core.engine``.
+The counterpart of ``repro.features.engine``'s ``ShardedFeatureEngine``.
+The paper's partitioned workers (§5.3) are processes here: with a mesh
+(``mesh=``, a 1-D ``torch.distributed`` ``DeviceMesh`` from
+``launch.mesh.make_shard_mesh``) each rank is one shard, owns a subset of
+the entities and steps only its own rows, with no collective on the
+decision or update path.  Without a mesh one card is one shard, which owns
+every entity.  The engine holds no decision math of its own — it routes
+events under its layout and composes the core step, so every decision +
+read-modify-write runs through the same keyed ``thinning_rmw`` launch as
+``core.engine``.
 
 Layouts (``layout=`` constructor option, names in ``LAYOUTS``):
 
-* ``layout="block"`` (default) — the identity: key k lives at row k.
-* ``layout="virtual"`` — a row permutation from ``distributed.rebalance``
-  (virtual shards placed by volume-weighted power-of-two-choices); with one
-  shard it only permutes rows, and an inverse gather at ``materialize``
-  keeps user-visible entity ids unchanged.
+* ``layout="block"`` (default) — shard ``s`` owns entities with
+  ``key % n_shards == s`` at local row ``key // n_shards`` (one card: key
+  k at row k).  Under heavy key skew the hottest shard sets the stream's
+  block count and every other shard pads up to it.
+* ``layout="virtual"`` — keys map onto virtual shards placed by
+  volume-weighted power-of-two-choices (``distributed.rebalance``),
+  cutting the padded-block waste on skewed streams; each rank holds its
+  slice of the layout's ``gid_of_row``, and an inverse gather at
+  ``materialize`` keeps user-visible entity ids unchanged.
 
 Determinism: the step feeds each event's *global* entity id to the core
-step's ``rng_entity`` hook — the identity under the block layout, gathered
-from the layout's ``gid_of_row`` table under the virtual layout — so the
-counter-based thinning RNG sees exactly the counters ``core.engine`` sees
-on the same stream: decisions are bit-identical for either layout.
+step's ``rng_entity`` hook — ``local_row * n_shards + shard`` under the
+block layout, the rank's slice of ``gid_of_row`` under the virtual one —
+so the counter-based thinning RNG sees exactly the counters ``core.engine``
+sees on the same stream: decisions are bit-identical for any shard count
+and either layout.
 
-Streaming: ``run_stream`` packs the flat stream into ``[n_blocks, B]``
-blocks on the host and drives them through ``core.stream``'s drivers: the
-block loop, the write-behind sink path and, with ``residency=``, the
-slot-based resident set (``init_resident_state``), whose global ids ride
-the blocks as data so the RNG guarantee holds for any slot budget.  The
-state is updated in place (``core.stream``).
-
-A ``mesh=`` raises ``NotImplementedError``: multi-GPU sharding is not
-ported yet (ROADMAP.md queue 1 item 1).
+Streaming: every rank receives the whole flat stream, routes it with the
+shared host code (``route``, ``route_stream_blocks``) and keeps its own
+column of the ``[n_blocks, n_shards * B]`` blocks; every rank steps the
+same global block count (a light shard's all-padding blocks run too).
+``run_stream`` drives them through ``core.stream``'s drivers: the block
+loop, the write-behind sink path and, with ``residency=``, the slot-based
+resident set (``init_resident_state``), each rank with its own
+``ResidencyMap``.  The state is updated in place (``core.stream``).  The
+collectives (``distributed.collectives``) gather what the JAX engine
+returns as global arrays: the stream-order ``StepInfo``, the write count,
+``materialize``/``materialize_cold`` placed by owner, and checkpoints
+(``checkpoint.manager``).  Storage is owned by rank: ``make_sink`` opens
+the rank's own partition only and refuses rows of any other.
 """
 from __future__ import annotations
 
@@ -43,7 +57,8 @@ from repro_torch.core import stream as core_stream
 from repro_torch.core.thinning import prng_key
 from repro_torch.core.types import (EngineConfig, Event, ProfileState,
                                     StepInfo, init_state, resolve_device)
-from repro_torch.distributed import rebalance
+from repro_torch.distributed import collectives, rebalance
+from repro_torch.launch.mesh import shard_of_mesh
 from repro_torch.streaming import persistence
 
 # The layouts this engine supports (the JAX package's names).
@@ -95,48 +110,54 @@ def route_stream_blocks(shard: np.ndarray, local: np.ndarray, q: np.ndarray,
     return out_key, out_q, out_t, out_valid, slot, n_blocks
 
 
-def _mesh_unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: multi-GPU sharding is "
-        f"ROADMAP.md queue 1 item 1; one card is one shard (mesh=None)")
-
-
 class ShardedFeatureEngine:
-    """Vectorized persistence-path control over one card's entities."""
+    """Vectorized persistence-path control over a shard's entities."""
 
     def __init__(self, cfg: EngineConfig, num_entities: int, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",),
                  mode: str = "fast", layout: str = "block",
                  key_weights: Optional[np.ndarray] = None,
                  n_virtual: Optional[int] = None, seed: int = 0,
                  device=None):
-        if mesh is not None:
-            raise _mesh_unported("ShardedFeatureEngine(mesh=...)")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; choose from "
                              f"{LAYOUTS}")
         self.cfg = cfg
         self.mode = mode
         self.layout = layout
-        self.device = resolve_device(device)
-        self.n_shards = 1
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        if mesh is None:
+            self.n_shards, self.shard, self.group = 1, 0, None
+            self.device = resolve_device(device)
+        else:
+            self.n_shards, self.shard, self.group = shard_of_mesh(
+                mesh, self.data_axes)
+            # a mesh names its device type; the rank's card is the one
+            # make_shard_mesh pinned
+            self.device = resolve_device(mesh.device_type if device is None
+                                         else device)
+        n, s = self.n_shards, self.shard
         if layout == "virtual":
-            # a row permutation from the skew-aware layout; see
-            # distributed/rebalance.py for the contract
+            # frozen skew-aware layout; see distributed/rebalance.py
             self.vlayout = rebalance.build_layout(
-                num_entities, self.n_shards, key_weights=key_weights,
+                num_entities, n, key_weights=key_weights,
                 n_virtual=n_virtual, seed=seed)
-            self.entities_per_shard = self.vlayout.entities_per_shard
+            E = self.entities_per_shard = self.vlayout.entities_per_shard
             self.num_entities = self.vlayout.num_rows
             self._row_of_key = torch.as_tensor(
                 np.asarray(self.vlayout.row_of_key, np.int64),
                 device=self.device)
-            self._step_consts = (torch.as_tensor(
-                np.asarray(self.vlayout.gid_of_row, np.int64),
-                device=self.device),)
+            # this shard's slice of gid_of_row: local row -> global id
+            self._gid_host = np.asarray(self.vlayout.gid_of_row,
+                                        np.int64)[s * E:(s + 1) * E]
+            self._step_consts = (torch.as_tensor(self._gid_host,
+                                                 device=self.device),)
         else:
             self.vlayout = None
-            self.entities_per_shard = int(num_entities)
-            self.num_entities = int(num_entities)
+            # round entities up so every shard owns the same row count
+            self.entities_per_shard = -(-int(num_entities) // n)
+            self.num_entities = self.entities_per_shard * n
             self._row_of_key = None
             self._step_consts = ()
         self._local_step = core_engine.make_step(cfg, mode)
@@ -144,15 +165,18 @@ class ShardedFeatureEngine:
 
     # ------------------------------------------------------------ state
     def init_state(self) -> ProfileState:
-        return init_state(self.num_entities, len(self.cfg.taus),
+        """This shard's rows: ``entities_per_shard`` of them (every entity
+        on one card)."""
+        return init_state(self.entities_per_shard, len(self.cfg.taus),
                           device=self.device)
 
     def init_resident_state(self, slots_per_shard: int) -> ProfileState:
-        """Bounded device state: ``slots_per_shard`` resident slots instead
-        of one row per entity — the state for ``run_stream(residency=...)``.
-        Device memory then scales with the budget, not ``num_entities``."""
-        return init_state(self.n_shards * int(slots_per_shard),
-                          len(self.cfg.taus), device=self.device)
+        """Bounded device state: ``slots_per_shard`` resident slots on this
+        shard instead of one row per owned entity — the state for
+        ``run_stream(residency=...)``.  Device memory then scales with the
+        budget, not ``num_entities``."""
+        return init_state(int(slots_per_shard), len(self.cfg.taus),
+                          device=self.device)
 
     # ------------------------------------------------ host-side routing
     def route(self, key: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -165,16 +189,18 @@ class ShardedFeatureEngine:
 
     def partition_events(self, key: np.ndarray, q: np.ndarray,
                          t: np.ndarray, batch_per_shard: int) -> Event:
-        """Route a host batch under the active layout into one ``[B]``
-        Event on the card (events beyond ``B`` are dropped from this
-        micro-batch; ``run_stream`` drops none)."""
+        """Route a host batch under the active layout: this shard's events,
+        local rows in ``key``, as one ``[B]`` Event on its device — the
+        shard's column of the JAX engine's global ``[n_shards * B]`` Event
+        (events beyond ``B`` a shard are dropped from this micro-batch;
+        ``run_stream`` drops none)."""
         shard, local = self.route(key)
         B = batch_per_shard
         out_key = np.zeros(B, np.int64)
         out_q = np.zeros(B, np.float32)
         out_t = np.zeros(B, np.float32)
         out_valid = np.zeros(B, bool)
-        sel = np.nonzero(shard == 0)[0][:B]
+        sel = np.nonzero(shard == self.shard)[0][:B]
         m = len(sel)
         out_key[:m] = local[sel]
         out_q[:m] = np.asarray(q)[sel]
@@ -185,8 +211,9 @@ class ShardedFeatureEngine:
                      valid=dev(out_valid))
 
     def _blocks(self, keys, qs, ts, batch_per_shard, rows=True):
-        """Host ``[n_blocks, B]`` blocks of a routed stream: state rows
-        (``rows=True``) or the global ids in the key column."""
+        """This shard's host ``[n_blocks, B]`` column of a routed stream:
+        local state rows (``rows=True``) or the global ids in the key
+        column; ``slot`` maps events to the global blocks' flat slots."""
         key = np.asarray(keys, np.int32)
         q = np.asarray(qs, np.float32)
         t = np.asarray(ts, np.float32)
@@ -194,16 +221,20 @@ class ShardedFeatureEngine:
         shard, local = self.route(key)
         out_key, out_q, out_t, out_valid, slot, n_blocks = \
             route_stream_blocks(shard, local if rows else key, q, t, n, B)
-        blk = lambda x: x.reshape(n_blocks, n * B)
+        cols = slice(self.shard * B, (self.shard + 1) * B)
+        blk = lambda x: np.ascontiguousarray(
+            x.reshape(n_blocks, n * B)[:, cols])
         return (blk(out_key), blk(out_q), blk(out_t), blk(out_valid), slot,
                 n_blocks)
 
     def partition_stream(self, key, q, t, batch_per_shard: int
                          ) -> Tuple[Event, np.ndarray]:
-        """Route a flat host stream into ``[n_blocks, B]`` blocks on the
-        card.  Every event is retained exactly once.  Returns (events,
-        slot) where ``slot`` is the flat block-major slot of every input
-        event, for mapping per-event outputs back to stream order."""
+        """Route a flat host stream into this shard's ``[n_blocks, B]``
+        blocks on its device.  Every event is retained exactly once (on
+        its owner).  Returns (events, slot) where ``slot`` is the flat
+        block-major slot of every input event in the global ``[n_blocks,
+        n_shards * B]`` blocks, for mapping per-event outputs back to
+        stream order."""
         kb, qb, tb, vb, slot, _ = self._blocks(key, q, t, batch_per_shard)
         dev = lambda x: torch.from_numpy(x).to(self.device)
         return Event(key=dev(kb.astype(np.int64)), q=dev(qb), t=dev(tb),
@@ -226,11 +257,23 @@ class ShardedFeatureEngine:
     # ------------------------------------------------------------- step
     def make_step(self):
         """(state, Event, rng) -> (state, StepInfo), memoized: the core
-        step with the layout's global ids as the RNG entities."""
+        step on this shard's rows with the layout's global ids as the RNG
+        entities.  On a mesh ``Event`` is the shard's ``partition_events``
+        column, the StepInfo is the shard's lanes and ``writes`` is the
+        mesh's total (an all-reduce, the one collective of the JAX
+        step)."""
         if self._step is None:
             raw, consts = self._raw_step, self._step_consts
-            self._step = (lambda st, ev, rng: raw(st, ev, rng, *consts)) \
+            step = (lambda st, ev, rng: raw(st, ev, rng, *consts)) \
                 if consts else raw
+            if self.mesh is not None:
+                local = step
+
+                def step(st, ev, rng):
+                    st, info = local(st, ev, rng)
+                    return st, info._replace(writes=collectives.write_count(
+                        info.writes, self.group))
+            self._step = step
         return self._step
 
     def _raw_step(self, st, ev, rng, *consts):
@@ -239,6 +282,10 @@ class ShardedFeatureEngine:
             (gid,) = consts
             return self._local_step(st, ev, rng,
                                     rng_entity=gid[ev.key.to(torch.int64)])
+        if self.n_shards > 1:
+            # local row l of shard s is global entity l * n + s
+            ent = ev.key.to(torch.int64) * self.n_shards + self.shard
+            return self._local_step(st, ev, rng, rng_entity=ent)
         return self._local_step(st, ev, rng)
 
     def _residency_step(self, st, ev_ent, rng):
@@ -256,16 +303,23 @@ class ShardedFeatureEngine:
                    ) -> Tuple[ProfileState, Union[StepInfo, torch.Tensor]]:
         """Drive the engine over a flat stream, updating ``state`` in place.
 
+        On a mesh every rank passes the whole stream and steps its own
+        column of the routed blocks; the result is the JAX engine's, on
+        every rank: the StepInfo gathered into stream order, or the
+        mesh's per-block write counts.
+
         ``sink``: optional write-behind persistence sink (``make_sink``):
         the stream then runs in flush groups of ``sink_group`` blocks and
         each group's thinned rows are flushed, keyed by global entity id,
         while the next group computes.  Caller flushes.
 
-        ``residency``: slot budget (int) or a one-element list of prebuilt
-        ``streaming.residency.ResidencyMap``s.  The state then holds ``S``
-        slots (``init_resident_state``); misses hydrate from the sink's
-        stores and victims recycle per the map's policy.  Requires
-        ``sink``.
+        ``residency``: per-shard slot budget (int) or a list of prebuilt
+        ``streaming.residency.ResidencyMap``s, one per shard (a rank uses
+        its own).  The state then holds ``S`` slots a shard
+        (``init_resident_state``); misses hydrate from the shard's own
+        store and victims recycle per the map's policy.  Each rank's map
+        and hydration are its own: no padding to a mesh-wide width.
+        Requires ``sink``.
 
         ``pipeline_depth``: as ``core.stream.run_stream`` — 1 is the
         serial flush-group loop, >= 2 the pipelined plane, bit-identical.
@@ -301,6 +355,11 @@ class ShardedFeatureEngine:
             state, info = core_stream.block_runner_for(
                 self._raw_step, collect_info)(state, events, rng,
                                               *self._step_consts)
+        if self.mesh is not None:
+            if not collect_info:
+                return state, collectives.write_count(info, self.group)
+            return state, collectives.stream_order_info(info, slot,
+                                                        self.group)
         if not collect_info:
             return state, info
         idx = torch.from_numpy(np.asarray(slot, np.int64)).to(state.device)
@@ -313,16 +372,17 @@ class ShardedFeatureEngine:
     def _run_stream_sink(self, state, keys, qs, ts, batch_per_shard, rng,
                          collect_info, sink, sink_group, depth):
         """Write-behind flush-group loop: ``core.stream._drive_with_sink``
-        over the layout's rows, with sink keys the *global* entity ids
-        (the identity under the block layout, ``gid_of_row`` under the
-        virtual one) so stored rows are keyed like the per-event worker's.
+        over the shard's rows, with sink keys the *global* entity ids
+        (``local * n + shard`` under the block layout, the shard's
+        ``gid_of_row`` under the virtual one) so stored rows are keyed
+        like the per-event worker's.
         """
         kb, qb, tb, vb, slot, n_blocks = self._blocks(keys, qs, ts,
                                                       batch_per_shard)
         if self.layout == "virtual":
-            gid_host = np.asarray(self.vlayout.gid_of_row)[kb]
+            gid_host = self._gid_host[kb]
         else:
-            gid_host = kb.astype(np.int64)
+            gid_host = kb.astype(np.int64) * self.n_shards + self.shard
         group_of = core_stream.group_source(
             dict(key=kb.astype(np.int64), q=qb, t=tb, valid=vb),
             state.device, depth)
@@ -338,8 +398,9 @@ class ShardedFeatureEngine:
                               rng, collect_info, sink, sink_group,
                               residency, depth):
         """Slot-based resident-set loop: ``core.stream.
-        _drive_with_residency`` with the blocks holding *global* ids (slots
-        are a per-group decision of the ResidencyMap in ``plan_group``)."""
+        _drive_with_residency`` over the shard's column, the blocks holding
+        *global* ids (slots are a per-group decision of the shard's
+        ResidencyMap in ``plan_group``)."""
         from repro_torch.streaming.residency import (ResidencyMap,
                                                      split_oversized_group)
         if sink is None:
@@ -353,13 +414,13 @@ class ShardedFeatureEngine:
         if len(rmaps) != self.n_shards:
             raise ValueError(f"need one ResidencyMap per shard "
                              f"({self.n_shards}), got {len(rmaps)}")
-        rmap = rmaps[0]
+        rmap = rmaps[self.shard]
         S = rmap.n_slots
-        if state.num_entities != self.n_shards * S:
+        if state.num_entities != S:
             raise ValueError(
-                f"state holds {state.num_entities} rows but the resident "
-                f"set needs {self.n_shards} shard x {S} slots; build it "
-                f"with init_resident_state({S})")
+                f"state holds {state.num_entities} rows but the shard's "
+                f"resident set has {S} slots; build it with "
+                f"init_resident_state({S})")
         kb, qb, tb, vb, slot, n_blocks = self._blocks(
             keys, qs, ts, batch_per_shard, rows=False)
         serde, n_taus = sink.serde, len(self.cfg.taus)
@@ -401,97 +462,135 @@ class ShardedFeatureEngine:
 
     # ------------------------------------------------------- persistence
     def make_sink(self, **kw) -> "persistence.WriteBehindSink":
-        """A ``WriteBehindSink`` on this engine's card whose partitions
-        mirror the layout's key -> shard map.  ``**kw`` passes through —
-        in particular ``backend="durable", store_dir=...`` puts real
-        WAL+compaction stores behind this engine; ``hydrate_from_dir`` is
-        the matching restart path."""
+        """A ``WriteBehindSink`` on this shard's device whose partitions
+        mirror the layout's key -> shard map, so every durable row lands
+        on the store of the shard that computed it.  On a mesh the sink
+        opens this rank's partition only (``owned``) and refuses rows of
+        any other: two ranks never write one store.  ``**kw`` passes
+        through — in particular ``backend="durable", store_dir=...`` puts
+        real WAL+compaction stores behind this engine (``part-<shard>/``
+        under ``store_dir``); ``hydrate_from_dir`` is the matching restart
+        path."""
         kw.setdefault("device", self.device)
+        if self.mesh is not None:
+            kw.setdefault("owned", (self.shard,))
         return persistence.WriteBehindSink(
             self.cfg, n_partitions=self.n_shards,
             partition_fn=lambda ks: self.route(np.asarray(ks))[0], **kw)
 
     def reopen_stores(self, store_dir: str, **kw):
-        """Recover this engine's ``DurableStore`` partitions from an on-disk
-        directory (WAL replay + segment load, torn tails repaired)."""
+        """Recover this shard's ``DurableStore`` partition from an on-disk
+        directory (WAL replay + segment load, torn tails repaired): a list
+        of one store, like ``make_sink().stores``."""
         from repro_torch.streaming.durable import open_partition_stores
-        return open_partition_stores(store_dir, self.n_shards, **kw)
+        return open_partition_stores(store_dir, self.n_shards,
+                                     owned=(self.shard,), **kw)
 
     def hydrate_from_dir(self, store_dir: str, **kw) -> ProfileState:
-        """Crash recovery from bytes alone: reopen the durable partitions
-        under ``store_dir`` and rebuild the state from what the disk
-        holds."""
-        return self.hydrate_state(self.reopen_stores(store_dir, **kw))
+        """Crash recovery from bytes alone: reopen this shard's durable
+        partition under ``store_dir`` and rebuild its rows from what the
+        disk holds (the stores are closed again)."""
+        stores = self.reopen_stores(store_dir, **kw)
+        try:
+            return self.hydrate_state(stores)
+        finally:
+            for s in stores:
+                s.close()
 
     def _row_of_key_host(self) -> np.ndarray:
-        """Host map: global entity id -> state row, per the layout."""
+        """Host map: global entity id -> this shard's state row, per the
+        layout (meaningful for the keys the shard owns)."""
         if self.layout == "virtual":
-            return np.asarray(self.vlayout.row_of_key)
-        return np.arange(self.num_entities, dtype=np.int64)
+            return np.asarray(self.vlayout.local_of_key, np.int64)
+        return np.arange(self.num_entities, dtype=np.int64) // self.n_shards
 
     def hydrate_state(self, stores) -> ProfileState:
-        """Rebuild the state on the card from durable partition stores
-        (the restart path; persisted columns bit-exact to the lost
-        exact-mode state)."""
+        """Rebuild this shard's rows from its durable partition store (the
+        restart path; persisted columns bit-exact to the lost exact-mode
+        state).  ``stores``: ``make_sink().stores`` or ``reopen_stores``."""
         return persistence.hydrate_state(
-            stores, self.num_entities, len(self.cfg.taus),
+            stores, self.entities_per_shard, len(self.cfg.taus),
             row_of_key=self._row_of_key_host(), device=self.device)
 
     def materialize(self, state: ProfileState, keys, t) -> torch.Tensor:
         """Read-only feature materialization by global entity id (the
-        virtual layout gathers through ``row_of_key``)."""
-        keys = torch.as_tensor(keys, device=state.device).to(torch.int64)
-        rows = self._row_of_key[keys] if self.layout == "virtual" else keys
+        virtual layout gathers through ``row_of_key``).  On a mesh every
+        rank passes the same keys: each key's features are computed on
+        its owner and placed, so every rank gets them all."""
+        if self.mesh is None:
+            keys = torch.as_tensor(keys, device=state.device).to(
+                torch.int64)
+            rows = self._row_of_key[keys] if self.layout == "virtual" \
+                else keys
+        else:
+            owner, local = self.route(_host_keys(keys))
+            rows = torch.from_numpy(np.where(owner == self.shard, local, 0)
+                                    .astype(np.int64)).to(state.device)
         t = torch.as_tensor(t, dtype=torch.float32, device=state.device)
-        return core_engine.materialize_features(state, rows, t,
-                                                self.cfg.taus)
+        feats = core_engine.materialize_features(state, rows, t,
+                                                 self.cfg.taus)
+        if self.mesh is None:
+            return feats
+        return collectives.place_owned(feats, owner, self.group)
 
     def materialize_cold(self, stores, keys, t, l2_probe=None
                          ) -> torch.Tensor:
         """Score straight from durable bytes — restart as cold-start
         hydration, with no dense state table ever built.
 
-        ``stores`` must be partitioned like this engine's ``make_sink``
-        output.  One batched ``multi_get`` per touched partition, a
-        vectorized unpack, then the same decay + materialize as
-        ``materialize`` on the card — so for persisted profiles the
-        features equal those of a fully hydrated state, and absent keys
-        score as fresh profiles.  ``l2_probe``: the owning sink's
-        ``l2_probe``; hits skip the durable gets (same bytes).
+        ``stores``: this shard's partition store (``make_sink().stores``
+        or ``reopen_stores``).  The shard reads the keys it owns, one
+        batched ``multi_get``, and unpacks them; on a mesh the rows are
+        placed by owner on every rank (every rank passes the same keys).
+        The same decay + materialize as ``materialize`` then runs on the
+        device — so for persisted profiles the features equal those of a
+        fully hydrated state, and absent keys score as fresh profiles.
+        ``l2_probe``: the owning sink's ``l2_probe``; hits skip the
+        durable gets (same bytes).
         """
         from repro_torch.streaming.kvstore import SerDe
 
-        keys_np = np.asarray(keys.cpu() if isinstance(keys, torch.Tensor)
-                             else keys, np.int64)
+        if len(stores) != 1:
+            raise ValueError(f"materialize_cold takes this shard's one "
+                             f"partition store, got {len(stores)}")
+        keys_np = _host_keys(keys)
         n_taus = len(self.cfg.taus)
         serde = SerDe(n_taus)
         last_t = np.full(keys_np.size, -np.inf, np.float32)
         agg = np.zeros((keys_np.size, n_taus, 3), np.float32)
+        part = self.route(keys_np)[0]
+        sel = np.nonzero(part == self.shard)[0]
         if l2_probe is not None:
-            rows, hit = l2_probe(keys_np)
+            rows, hit = l2_probe(keys_np[sel])
             rows = list(rows)
         else:
-            rows = [None] * int(keys_np.size)
-            hit = np.zeros(keys_np.size, bool)
-        part = self.route(keys_np)[0]
-        for p in np.unique(part):
-            sel = np.nonzero(part == p)[0]
-            todo = sel[~hit[sel]]
-            if todo.size:
-                got = stores[int(p)].multi_get(keys_np[todo])
-                for j, r in zip(todo, got):
-                    rows[int(j)] = r
-            present = sel[[rows[int(i)] is not None for i in sel]]
-            if present.size:
-                lt, _, ag, _, _ = serde.unpack_rows(
-                    [rows[int(i)] for i in present],
-                    keys=keys_np[present], partition=int(p))
-                last_t[present] = lt.astype(np.float32)
-                agg[present] = ag
+            rows = [None] * int(sel.size)
+            hit = np.zeros(sel.size, bool)
+        todo = np.nonzero(~hit)[0]
+        if todo.size:
+            got = stores[0].multi_get(keys_np[sel[todo]])
+            for j, r in zip(todo, got):
+                rows[int(j)] = r
+        present = [i for i, r in enumerate(rows) if r is not None]
+        if present:
+            lt, _, ag, _, _ = serde.unpack_rows(
+                [rows[i] for i in present], keys=keys_np[sel[present]],
+                partition=self.shard)
+            last_t[sel[present]] = lt.astype(np.float32)
+            agg[sel[present]] = ag
+        last_t, agg = torch.from_numpy(last_t), torch.from_numpy(agg)
+        if self.mesh is not None:
+            last_t = collectives.place_owned(last_t, part, self.group)
+            agg = collectives.place_owned(agg, part, self.group)
         dev = self.device
         taus = torch.tensor(self.cfg.taus, dtype=torch.float32, device=dev)
         t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-        agg_now = estimators.decay_to(torch.from_numpy(agg).to(dev),
-                                      torch.from_numpy(last_t).to(dev), t,
-                                      taus)
+        agg_now = estimators.decay_to(agg.to(dev), last_t.to(dev), t, taus)
         return estimators.materialize(agg_now)
+
+
+def _host_keys(keys) -> np.ndarray:
+    """Entity ids as a flat int64 host array."""
+    if isinstance(keys, torch.Tensor):
+        keys = keys.cpu()
+    return np.asarray(keys, np.int64).reshape(-1)

@@ -11,6 +11,13 @@ TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``).
 Events reach the pipeline closed-loop (``process_stream``: pre-cut blocks
 as fast as the device takes them) or open-loop (``serve``: requests
 through the admission queue and dynamic batcher of ``serving.frontend``).
+
+``build(mesh=...)`` runs the engine sharded, one rank a shard
+(``features.engine``): every rank calls the same methods with the same
+stream, ``process_stream`` gives every rank the whole stream's features
+in stream order, so every rank scores every event at the single card's
+width, and the restarts read each rank's own partition.  The online
+frontend stays single-shard, as the JAX one is.
 """
 from __future__ import annotations
 
@@ -180,6 +187,9 @@ class ScoringPipeline:
                                                   make_requests)
         from repro_torch.streaming.residency import ResidencyMap
 
+        if self.engine.mesh is not None:
+            raise ValueError("the online frontend is single-shard: build "
+                             "the pipeline without mesh= to serve")
         cfg = self.engine.cfg
         rmap = None
         if residency is not None:
@@ -225,7 +235,7 @@ def run_restart_demo(spec: ProfileSpec, num_entities: int, keys, qs, ts,
                      sink_group: int = 4, backend: str = "memory",
                      store_dir: Optional[str] = None,
                      store_kw: Optional[dict] = None, device=None,
-                     **engine_overrides) -> dict:
+                     mesh=None, **engine_overrides) -> dict:
     """End-to-end score -> persist -> restart -> score round trip.
 
     Streams events through a thinned pipeline with a write-behind sink,
@@ -248,8 +258,13 @@ def run_restart_demo(spec: ProfileSpec, num_entities: int, keys, qs, ts,
     cold-start scoring against the dense engine.
 
     The scorer's weights come from ``torch.Generator().manual_seed(1)``.
+
+    ``mesh``: run it sharded — every rank calls this with the same
+    arguments, writes and recovers its own partition (``store_dir`` is
+    shared, ``part-<rank>/`` each) and returns the same scores;
+    ``recovery`` then counts this rank's partition.
     """
-    pipe = ScoringPipeline.build(spec, num_entities, mode=mode,
+    pipe = ScoringPipeline.build(spec, num_entities, mesh=mesh, mode=mode,
                                  device=device, **engine_overrides)
     pipe.scorer = init_scorer(torch.Generator().manual_seed(1),
                               spec.feature_dim, device=pipe.engine.device)
@@ -291,8 +306,9 @@ def run_restart_demo(spec: ProfileSpec, num_entities: int, keys, qs, ts,
         # "live" reference: the same stream on a dense in-memory engine
         # (no persistence) — decisions are residency-invariant, so its
         # state is what the bounded engine would hold at S = E
-        ref = ScoringPipeline.build(spec, num_entities, mode=mode,
-                                    device=device, **engine_overrides)
+        ref = ScoringPipeline.build(spec, num_entities, mesh=mesh,
+                                    mode=mode, device=device,
+                                    **engine_overrides)
         ref.scorer = pipe.scorer
         ref_state, _ = ref.process_stream(ref.init(), keys, qs, ts, rng=rng,
                                           batch_per_shard=batch_per_shard,

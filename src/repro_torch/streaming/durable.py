@@ -95,6 +95,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import fcntl
 import os
 import struct
 import threading
@@ -107,7 +108,8 @@ import numpy as np
 from repro_torch.streaming.kvstore import KVStore, StorageModel
 
 __all__ = ["DurableStore", "DurableCounters", "CorruptionError", "FileOps",
-           "open_partition_stores", "BACKENDS", "COMPACTION"]
+           "PartitionLockedError", "open_partition_stores", "BACKENDS",
+           "COMPACTION"]
 
 # Persistence backends the write-behind sink can sit on
 # (``WriteBehindSink(backend=...)`` / ``ShardedFeatureEngine.make_sink``).
@@ -123,6 +125,7 @@ BACKENDS = ("memory", "durable")
 COMPACTION = ("inline", "background")
 
 WAL_NAME = "wal.log"
+LOCK_NAME = "LOCK"
 SEG_SUFFIX = ".seg"
 IDX_SUFFIX = ".idx"
 
@@ -151,6 +154,11 @@ class CorruptionError(RuntimeError):
     """Checksum mismatch on fully-present bytes: a bit flip or medium
     error, not a torn tail.  Recovery refuses to guess — it names the file
     and byte offset and stops."""
+
+
+class PartitionLockedError(RuntimeError):
+    """The store's directory is open in another process (two writers on
+    one WAL would corrupt it)."""
 
 
 class FileOps:
@@ -512,10 +520,15 @@ class DurableStore(KVStore):
         self._seg_loaded: set = set()
         self._seg_bloom: Optional[Tuple[int, int, np.ndarray]] = None
         os.makedirs(self.path, exist_ok=True)
-        if recover:
-            t0 = time.perf_counter()
-            self._recover()
-            self.durable.recovery_s = time.perf_counter() - t0
+        self._lock_fd = self._lock_dir()
+        try:
+            if recover:
+                t0 = time.perf_counter()
+                self._recover()
+                self.durable.recovery_s = time.perf_counter() - t0
+        except BaseException:
+            os.close(self._lock_fd)
+            raise
         self._wal_f = self.fops.open(self._wal_path(), "ab")
         self._wal_size = os.path.getsize(self._wal_path())
         if self.compaction == "background":
@@ -526,6 +539,23 @@ class DurableStore(KVStore):
             self._bg_thread.start()
             if self._wal_size >= self.compact_threshold_bytes:
                 self._compact_evt.set()
+
+    def _lock_dir(self) -> int:
+        """Take the directory's single-writer lock: an exclusive POSIX
+        record lock on ``LOCK``, held until ``close`` (or the process's
+        end, a crash included).  Another process that opens the directory
+        meanwhile gets ``PartitionLockedError``; this process may open it
+        again (a test's reopen after an abandoned handle)."""
+        fd = os.open(os.path.join(self.path, LOCK_NAME),
+                     os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            fcntl.lockf(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError as e:
+            os.close(fd)
+            raise PartitionLockedError(
+                f"{self.path} is open in another process: a store has "
+                f"one writer") from e
+        return fd
 
     # ------------------------------------------------------------- paths
     def _wal_path(self) -> str:
@@ -988,6 +1018,7 @@ class DurableStore(KVStore):
                     self.durable.fsyncs += 1
         finally:
             self._wal_f.close()
+            os.close(self._lock_fd)     # releases the directory's lock
         self._check_bg()
 
     def __enter__(self) -> "DurableStore":
@@ -1011,14 +1042,31 @@ class DurableStore(KVStore):
 
 
 def open_partition_stores(path: str, n_partitions: int, *,
+                          owned: Optional[Sequence[int]] = None,
                           model: Optional[StorageModel] = None,
                           seed: int = 0, **kw) -> List[DurableStore]:
     """Open (or create) one ``DurableStore`` per partition under ``path``
     (``part-0000/`` ... layout-aligned with the sink's ``partition_fn``).
     Reopening the same directory recovers every partition from its
     WAL+segments — the restart path of ``ShardedFeatureEngine.
-    hydrate_from_dir`` and ``serving.pipeline.run_restart_demo``."""
+    hydrate_from_dir`` and ``serving.pipeline.run_restart_demo``.
+
+    ``owned``: open only these partitions (in this order) — a rank of the
+    sharded engine opens its own and never another rank's; each store
+    holds its directory's lock (``PartitionLockedError`` if another
+    process has it open)."""
     os.makedirs(path, exist_ok=True)
-    return [DurableStore(os.path.join(path, f"part-{i:04d}"),
-                         model=model, seed=seed + i, **kw)
-            for i in range(int(n_partitions))]
+    parts = range(int(n_partitions)) if owned is None else owned
+    out: List[DurableStore] = []
+    try:
+        for i in parts:
+            if not 0 <= int(i) < int(n_partitions):
+                raise ValueError(f"partition {i} is outside "
+                                 f"{n_partitions} partitions")
+            out.append(DurableStore(os.path.join(path, f"part-{int(i):04d}"),
+                                    model=model, seed=seed + int(i), **kw))
+    except BaseException:
+        for s in out:
+            s.close()
+        raise
+    return out

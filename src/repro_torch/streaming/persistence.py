@@ -256,12 +256,37 @@ class ReadTicket:
         return self._rows
 
 
+def _owned_partition_fn(route, n_partitions: int, owned):
+    """``route`` (keys -> partition) as keys -> index into the owned
+    stores, refusing keys of partitions not owned."""
+    index = np.full(int(n_partitions), -1, np.int64)
+    index[list(owned)] = np.arange(len(owned))
+
+    def fn(keys):
+        part = np.asarray(route(keys), np.int64)
+        out = index[part]
+        if (out < 0).any():
+            raise ValueError(
+                f"rows of partitions {sorted(set(part[out < 0].tolist()))} "
+                f"reached a sink that owns only {tuple(owned)}: a rank "
+                f"writes and reads its own partition only")
+        return out
+
+    return fn
+
+
 class WriteBehindSink:
     """Asynchronous durable sink for engine block outputs.
 
     ``n_partitions``/``partition_fn`` route keys to partition stores
     (default: ``key % n_partitions``, the block layout);
     ``ShardedFeatureEngine.make_sink`` passes its layout's ``route``.
+    ``owned``: the partitions this sink opens and writes, in the order of
+    ``stores`` (default: all).  A rank of the sharded engine owns its own
+    partition only: it never opens another rank's store, and a row routed
+    to a partition it does not own is refused (``ValueError``, at the read
+    or demote that names it, or surfaced by the next ``submit``/``flush``
+    when a flushed row does).  ``partitions`` lists them.
     ``device`` names the device whose tensors the sink takes (``cuda:0``
     unless named; ``run_stream`` checks it against the state's).
 
@@ -331,6 +356,7 @@ class WriteBehindSink:
                  l2=None,
                  max_unsynced_bytes: Optional[int] = None,
                  store_kw: Optional[dict] = None,
+                 owned: Optional[Sequence[int]] = None,
                  device=None):
         self.cfg = cfg
         # the device whose tensors this sink takes (cuda:0 unless named)
@@ -344,24 +370,35 @@ class WriteBehindSink:
             raise ValueError(f"unknown overflow={overflow!r} "
                              f"(expected one of {OVERFLOW_POLICIES})")
         self._owns_stores = stores is None
+        parts = range(n_partitions) if owned is None else owned
         if stores is not None:
             if store_kw:
                 raise ValueError("store_kw= applies only to sink-opened "
                                  "durable stores, not explicit stores=")
             self.stores = list(stores)
+            if owned is not None and len(self.stores) != len(owned):
+                raise ValueError(f"{len(self.stores)} stores for the "
+                                 f"{len(owned)} owned partitions")
         elif backend == "durable":
             if store_dir is None:
                 raise ValueError("backend='durable' requires store_dir=")
             self.stores = open_partition_stores(
-                store_dir, n_partitions, model=storage, seed=seed,
-                **(store_kw or {}))
+                store_dir, n_partitions, owned=parts, model=storage,
+                seed=seed, **(store_kw or {}))
         else:
             if store_kw:
                 raise ValueError("store_kw= requires backend='durable'")
             self.stores = [KVStore(storage or StorageModel(), seed=seed + i)
-                           for i in range(n_partitions)]
-        self._partition_fn = partition_fn or \
-            (lambda keys: keys % len(self.stores))
+                           for i in parts]
+        self.partitions = tuple(int(p) for p in owned) if owned is not None \
+            else tuple(range(len(self.stores)))
+        if owned is None:
+            self._partition_fn = partition_fn or \
+                (lambda keys: keys % len(self.stores))
+        else:
+            self._partition_fn = _owned_partition_fn(
+                partition_fn or (lambda keys: keys % n_partitions),
+                n_partitions, self.partitions)
         # Host-RAM L2 tier between the device slots and the durable store
         # (``streaming.residency.HostL2Cache``), one cache per partition so
         # each stays owned by its partition's single worker thread on the

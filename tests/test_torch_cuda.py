@@ -461,3 +461,74 @@ def test_index_less_cuda_device_resolves_to_the_card(cuda_device):
                np.arange(8, dtype=np.float32), batch=8, sink=sink)
     assert sink.flush()["puts"] > 0
     sink.close()
+
+
+def _sharded_ranks(mesh, keys, qs, ts, mode, rounds):
+    """One rank of the sharded engine on the card: a run with a sink, the
+    rank's keyed launches and its plain steps on the card."""
+    from repro_torch.features.engine import ShardedFeatureEngine
+    from repro_torch.kernels import ref, threefry
+
+    cfg = EngineConfig(taus=(60.0, 3600.0), h=600.0, budget=0.002,
+                       policy="pp", exact_rounds=rounds)
+    eng = ShardedFeatureEngine(cfg, 64, mesh=mesh, mode=mode)
+    trmw.keyed_launches = threefry.cuda_calls = ref.gather_cuda_calls = 0
+    sink = eng.make_sink()
+    st, info = eng.run_stream(eng.init_state(), keys, qs, ts,
+                              batch_per_shard=32, rng=prng_key(3),
+                              sink=sink)
+    sink.flush()
+    sink.close()
+    return {"device": str(st.last_t.device), "launches": trmw.keyed_launches,
+            "blocks": eng.stream_layout_stats(keys, 32)["n_blocks"],
+            "plain": threefry.cuda_calls + ref.gather_cuda_calls,
+            "state": [x.cpu().numpy() for x in st],
+            "info": [getattr(info, f).cpu().numpy()
+                     for f in ("z", "p", "lam_hat", "features")],
+            "bytes": dict(sink.stores[0].data)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,backend", [(4, "gloo"), (1, "nccl")])
+def test_sharded_engine_ranks_on_the_card(cuda_device, n, backend):
+    """Phase 9 (b)/(f) in small: ``n`` ranks on ``cuda:0`` (gloo collectives
+    on host tensors; one NCCL rank on CUDA tensors), exact mode through
+    the sink, bitwise equal to the one-card engine: decisions, the
+    permuted state, store bytes.  Every rank launches the keyed kernel and
+    runs no plain step on the card."""
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.features.engine import ShardedFeatureEngine
+
+    trmw.KERNEL.build()                 # once, before the ranks load it
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 64, 1200).astype(np.int32)
+    qs = rng.lognormal(3, 1, 1200).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 2e5, 1200)).astype(np.float32)
+    rounds = int(np.bincount(keys).max())
+    ranks = run_ranks(_sharded_ranks, n, keys, qs, ts, "exact", rounds,
+                      backend=backend, device="cuda:0", timeout_s=120.0)
+    cfg = EngineConfig(taus=(60.0, 3600.0), h=600.0, budget=0.002,
+                       policy="pp", exact_rounds=rounds)
+    one = ShardedFeatureEngine(cfg, 64, mode="exact", device=cuda_device)
+    sink = one.make_sink()
+    st, info = one.run_stream(one.init_state(), keys, qs, ts,
+                              batch_per_shard=128, rng=prng_key(3),
+                              sink=sink)
+    sink.flush()
+    sink.close()
+    merged = {}
+    for r in ranks:
+        assert r["device"] == "cuda:0" and r["plain"] == 0
+        assert r["launches"] == r["blocks"] * (1 + rounds)
+        merged.update(r["bytes"])
+        for f, a in zip(("z", "p", "lam_hat", "features"), r["info"]):
+            assert np.array_equal(a.view(np.uint8), getattr(info, f).cpu()
+                                  .numpy().view(np.uint8)), f
+    k = np.arange(64)
+    e_local = -(-64 // n)
+    perm = (k % n) * e_local + k // n
+    for i, x in enumerate(st):
+        full = np.concatenate([r["state"][i] for r in ranks])
+        assert np.array_equal(full[perm].view(np.uint8),
+                              x.cpu().numpy().view(np.uint8)), i
+    assert merged == dict(sink.stores[0].data) and merged

@@ -280,12 +280,12 @@ def test_engine_routing_and_layout_stats():
 
 
 def test_unported_mesh_and_serve_raise():
-    """A mesh is not ported yet: it raises, naming ROADMAP.md.  The
-    serving frontend is: in exact mode ``serve`` (open-loop arrivals,
-    partial batches) equals ``process_stream`` bit for bit, scores
-    included."""
+    """``mesh=`` takes a ``DeviceMesh`` (``test_torch_sharded.py`` runs
+    one); anything else raises.  The serving frontend is single-shard: in
+    exact mode ``serve`` (open-loop arrivals, partial batches) equals
+    ``process_stream`` bit for bit, scores included."""
     cfg = EngineConfig(taus=(60.0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShardedFeatureEngine(cfg, 8, mesh=object(), device="cpu")
     from repro_torch.serving.frontend import VirtualClock, score_at_width
 
