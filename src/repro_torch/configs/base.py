@@ -1,12 +1,13 @@
 """Architecture / run configuration schema and registry (PyTorch port).
 
 A copy of ``repro.configs.base`` (plain Python, copied so that the port
-imports nothing of ``repro``), cut to what the serving path of the hybrid
-family reads: ``ModelConfig`` keeps the JAX names and defaults of those
-fields, and ``RunConfig`` holds the model alone (the training settings
-come back with the training code).  The registry lists only the
-architecture the port serves; the other architectures of the JAX package
-are not ported yet and ``load_config`` refuses them.
+imports nothing of ``repro``), cut to what the serving path of the dense,
+SSM, audio and hybrid families reads: ``ModelConfig`` keeps the JAX names
+and defaults of those fields, and ``RunConfig`` holds the model alone (the
+training settings come back with the training code).  The registry lists
+the architectures the port serves, in the JAX package's order; the MoE
+and vision architectures of the JAX package are not ported yet and
+``load_config`` refuses them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # hybrid: the one family the port serves
+    family: str                    # dense | ssm | hybrid | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -26,7 +27,7 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
-    # transformer flags (the port refuses the ones RecurrentGemma leaves off)
+    # dense-transformer flags
     qk_norm: bool = False
     use_bias: bool = False
     tie_embeddings: bool = False
@@ -35,11 +36,21 @@ class ModelConfig:
     norm_eps: float = 1e-6
     attn_window: int = 0           # 0 = global attention
     attn_softcap: float = 0.0
+    first_dense_layers: int = 0    # the layer plan's prefix of attn layers
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    ssm_groups: int = 1
     # hybrid (recurrentgemma): repeating block pattern
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     rglru_conv_width: int = 4
     rglru_expand: int = 1          # lru width = expand * d_model (RG uses 1)
+    # audio / frame-input
     input_mode: str = "tokens"     # tokens | frames
+    frame_dim: int = 0
     scale_embeddings: bool = False # gemma-style sqrt(d_model) embed scaling
     mlp_gated: bool = True         # SwiGLU (True) vs GELU MLP (False)
 
@@ -49,7 +60,11 @@ class RunConfig:
     model: ModelConfig
 
 
-ARCH_IDS = ["recurrentgemma-2b"]
+ARCH_IDS = [
+    "mamba2-2.7b", "command-r-plus-104b", "yi-9b", "smollm-360m", "qwen3-4b",
+    "recurrentgemma-2b", "hubert-xlarge",
+]
+DEFAULT_ARCH = "recurrentgemma-2b"
 
 
 def _module(arch_id: str):

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `_decay_scan_kernel` / `decay_scan_pallas`
 // in src/repro/kernels/decay_scan.py (pallas_call at line 70). In the port it
-// carries the RG-LRU recurrence of the prefill (repro_torch/models/rglru.py).
+// carries the RG-LRU recurrence of the prefill (repro_torch/models/rglru.py)
+// and Mamba-2's inter-chunk state passing (repro_torch/models/mamba2.py).
 // The plain PyTorch version of the same function is `decay_scan_ref` in
 // src/repro_torch/kernels/ref.py.
 //

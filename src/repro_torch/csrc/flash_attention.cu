@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention_pallas`
 // in src/repro/kernels/flash_attention.py (pallas_call at line 114). In the
-// port it carries the local-attention prefill (repro_torch/models/
-// attention.py). The plain PyTorch version of the same function is
-// `attention_ref` in src/repro_torch/kernels/ref.py.
+// port it carries the attention prefill of every family (repro_torch/models/
+// attention.py): local, global causal and, for the encoder, non-causal. The
+// plain PyTorch version of the same function is `attention_ref` in
+// src/repro_torch/kernels/ref.py.
 //
 // Semantics, as the Pallas kernel: q [B, H, Sq, D], k and v [B, Kh, Skv, D],
 // query head h reads KV head h / (H / Kh) (no repeated K/V); scores are the

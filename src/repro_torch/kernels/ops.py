@@ -1,8 +1,9 @@
 """Public wrappers of the port's three kernels (PyTorch).
 
 The counterparts of ``repro.kernels.ops``: ``thinning_rmw`` (the fused
-decision + update over gathered rows), ``decay_scan`` (the RG-LRU prefill
-recurrence) and ``flash_attention`` (the local-attention prefill); and
+decision + update over gathered rows), ``decay_scan`` (the prefill
+recurrence of the RG-LRU and of Mamba-2's chunk states) and
+``flash_attention`` (the attention prefill of every family); and
 ``thinning_rmw_keyed``, the same fused pass read from the state at the
 events' keys, with the counter-RNG uniforms drawn in the kernel and, in
 exact mode, the rows written back — the one decision + update call that

@@ -4,9 +4,11 @@
 The counterpart of ``repro.launch.serve``.  It runs on ``cuda:0`` unless
 ``--device cpu`` is given.
 
-* ``llm`` — prefill + decode for the architectures the port serves, at
-  the full configuration unless ``--smoke`` is given, with random weights
-  drawn from ``--seed``.
+* ``llm`` — prefill + decode for the architectures the port serves
+  (``ARCH_IDS``: dense, SSM, audio and hybrid), at the full configuration
+  unless ``--smoke`` is given, with random weights drawn from ``--seed``.
+  An encoder-only architecture (hubert) encodes ``--batch`` x
+  ``--prompt-len`` random frames instead.
 * ``scoring`` — the online feature-scoring tier (``serving/frontend.py``
   via ``ScoringPipeline.serve``): open-loop Poisson request admission at
   ``--load`` events/s (0: all at once), dynamic batching with a
@@ -19,7 +21,7 @@ The counterpart of ``repro.launch.serve``.  It runs on ``cuda:0`` unless
         --arch recurrentgemma-2b --requests 2 --batch 2 \\
         --prompt-len 4096 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch recurrentgemma-2b --smoke --device cpu
+        --arch qwen3-4b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --frontend scoring \\
         --regime fraud --requests 5000 --load 20000 [--device cpu]
 """
@@ -31,7 +33,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ARCH_IDS, load_config, load_smoke_config
+from repro_torch.configs.base import (ARCH_IDS, DEFAULT_ARCH, load_config,
+                                      load_smoke_config)
 from repro_torch.core.thinning import prng_key
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import _build, decay_scan, flash_attention
@@ -56,11 +59,27 @@ def _serve_llm(args) -> None:
     dtype = torch.float32 if args.smoke else torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = backbone.init_params(cfg, gen, dtype, device)
+    rng = np.random.default_rng(args.seed)
+    if not cfg.causal:
+        # encoder-only: serve = full-sequence frame classification
+        encode = make_serve_step(run, "prefill", compute_dtype=dtype)
+        frames = torch.from_numpy(rng.normal(
+            size=(args.batch, args.prompt_len, cfg.frame_dim))).to(
+                device, dtype)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits = encode(params, frames)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        print(f"encoded {args.batch}x{args.prompt_len} frames -> "
+              f"{tuple(logits.shape)} on {device} in {wall:.2f}s "
+              f"({args.batch * args.prompt_len / max(wall, 1e-9):,.0f} "
+              f"frames/s)")
+        return
     prefill = make_serve_step(run, "prefill", compute_dtype=dtype,
                               max_len=args.prompt_len + args.new_tokens)
     decode = make_serve_step(run, "decode", compute_dtype=dtype)
 
-    rng = np.random.default_rng(args.seed)
     sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
     n_batches = -(-args.requests // args.batch)
     decoded = 0
@@ -171,7 +190,7 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", default=ARCH_IDS[0], choices=ARCH_IDS)
+    ap.add_argument("--arch", default=DEFAULT_ARCH, choices=ARCH_IDS)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)

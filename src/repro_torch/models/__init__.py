@@ -1,3 +1,3 @@
-"""The hybrid (RecurrentGemma) model stack: common machinery, the MLP,
-the RG-LRU and local-attention blocks, the backbone and the JAX weight
-carry-over."""
+"""The model stack of the dense, SSM, audio and hybrid families: common
+machinery, the MLPs, the attention, SSD and RG-LRU blocks, the backbone
+and the JAX weight carry-over."""

@@ -1,8 +1,8 @@
 """Shared model machinery (PyTorch): parameter descriptors and trees,
 norms, rope, the gated activation.
 
-The counterpart of ``repro.models.common``, cut to what the hybrid
-(RecurrentGemma) path uses.  A model is declared as a tree of ``Spec``
+The counterpart of ``repro.models.common``, cut to what the dense, SSM,
+audio and hybrid serving paths use.  A model is declared as a tree of ``Spec``
 descriptors; ``init_tree`` draws each leaf in float32 from one
 ``torch.Generator`` and casts it, and ``Params`` holds the resulting tree
 as an ``nn.Module`` whose leaves keep the JAX package's shapes, so that
@@ -22,7 +22,8 @@ class Spec(NamedTuple):
     """Parameter descriptor: shape + initializer."""
 
     shape: tuple
-    init: str = "normal"   # normal | zeros | ones | embed | rglru_a
+    init: str = "normal"   # normal | zeros | ones | embed | ssm_a | ssm_dt
+    #                        | rglru_a
     fan_in: Optional[int] = None
 
 
@@ -34,6 +35,13 @@ def init_param(spec: Spec, gen: torch.Generator, dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ssm_a":  # mamba2 A_log in [1, 16]
+        u = torch.rand(spec.shape, generator=gen, **f32) * (16.0 - 1.0) + 1.0
+        return torch.log(u).to(dtype)
+    if spec.init == "ssm_dt":  # dt bias ~ softplus-inverse of U[1e-3, 1e-1]
+        u = torch.rand(spec.shape, generator=gen, **f32) * (1e-1 - 1e-3) \
+            + 1e-3
+        return (u + torch.log(-torch.expm1(-u))).to(dtype)
     if spec.init == "rglru_a":  # a-param so sigmoid(.)^8 in ~[0.9, 0.999]
         u = torch.rand(spec.shape, generator=gen, **f32) * (0.999 - 0.9) \
             + 0.9
@@ -73,7 +81,7 @@ def count_params(specs) -> int:
 class Params(nn.Module):
     """A parameter tree as a module: dicts become ``Params``, lists
     ``nn.ModuleList``s and tensors frozen ``nn.Parameter``s (serving takes
-    no gradients).  ``p[name]`` reads it like a dict."""
+    no gradients).  ``p[name]`` and ``name in p`` read it like a dict."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -89,6 +97,9 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 # --------------------------------------------------------------------- layers
@@ -120,6 +131,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time as W shifted multiply-adds in x's
+    dtype (the reference's order; ``F.conv1d`` would sum differently).
+    x: [B, S, C]; w: [W, C]; b: [C]."""
+    W = w.shape[0]
+    out = x * w[W - 1]
+    for i in range(1, W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
+        out = out + shifted * w[W - 1 - i]
+    return out + b
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@
 returns, with every leaf already converted to a numpy array (this module
 imports nothing of JAX), and returns the port's ``Params``.  Every leaf
 keeps its JAX shape, so the carry-over is a copy, never a transpose; the
-stacked ``groups`` leaves are unstacked over their leading axis into the
-port's one list of layers, in execution order.
+prefix layers, then the stacked ``groups`` leaves unstacked over their
+leading axis, then the suffix layers make the port's one list of layers,
+in execution order.
 """
 from __future__ import annotations
 
@@ -41,24 +42,32 @@ def _index(tree, g: int):
 
 
 def from_jax_params(cfg, params_np, device=None) -> Params:
-    """The JAX tree ``{embed, prefix, groups, suffix, final_norm}`` (numpy
-    leaves) as the port's ``{embed, layers, final_norm}``, on ``device``
-    (``cuda:0`` unless named, like every entry point)."""
+    """The JAX tree ``{embed, prefix, groups, suffix, final_norm[, head]}``
+    (numpy leaves) as the port's ``{embed, layers, final_norm[, head]}``,
+    on ``device`` (``cuda:0`` unless named, like every entry point)."""
     device = resolve_device(device)
     plan = layer_plan(cfg)
-    if len(params_np["prefix"]):
-        raise ValueError("the hybrid plan has no prefix layers")
-    layers = [_index(params_np["groups"][i], g)
-              for g in range(plan.n_groups)
-              for i in range(len(plan.pattern))]
+    got = tuple(len(params_np[k]) for k in ("prefix", "groups", "suffix"))
+    want = (len(plan.prefix), len(plan.pattern) if plan.n_groups else 0,
+            len(plan.suffix))
+    if got != want:
+        raise ValueError(f"JAX tree of {got} (prefix layers, group stacks, "
+                         f"suffix layers) where the port's plan has {want}")
+    layers = list(params_np["prefix"])
+    layers += [_index(params_np["groups"][i], g)
+               for g in range(plan.n_groups)
+               for i in range(len(plan.pattern))]
     layers += list(params_np["suffix"])
     specs = model_specs(cfg)
-    if len(layers) != len(specs["layers"]):
-        raise ValueError(f"{len(layers)} JAX layers, {len(specs['layers'])} "
-                         f"in the port's plan")
-    return Params({
+    if ("head" in specs) != ("head" in params_np):
+        raise ValueError("the JAX tree and the port's plan disagree on an "
+                         "untied head")
+    tree = {
         "embed": _tree(specs["embed"], params_np["embed"], device),
         "layers": [_tree(s, v, device)
                    for s, v in zip(specs["layers"], layers)],
         "final_norm": _leaf(specs["final_norm"], params_np["final_norm"],
-                            device)})
+                            device)}
+    if "head" in specs:
+        tree["head"] = _leaf(specs["head"], params_np["head"], device)
+    return Params(tree)

@@ -1,0 +1,200 @@
+"""Mamba-2 (state-space duality / SSD) blocks, arXiv:2405.21060 (PyTorch).
+
+The counterpart of ``repro.models.mamba2``.  The chunked SSD prefill has
+an intra-chunk "attention-like" quadratic term, the chunk states, and the
+inter-chunk recurrence h_{c+1} = decay_c * h_c + S_c: a diagonal
+first-order linear recurrence over chunks, the same one the RG-LRU runs
+over time.  The port runs it as one ``ops.decay_scan`` over
+``[nC, B*H*N*P]`` (the hand-written CUDA kernel on the card) where the JAX
+package runs ``lax.scan``; the quadratic term and the chunk states stay
+plain torch products, as they stay outside any Pallas kernel in the
+reference.  Casts to the compute dtype happen where the reference's do, so
+the bfloat16 path rounds where JAX's does.  Decode keeps O(1) state and
+takes one step in plain torch.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import common
+from repro_torch.models.common import Spec
+
+
+def ssd_specs(cfg) -> dict:
+    D = cfg.d_model
+    d_inner = cfg.ssm_expand * D
+    H = d_inner // cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    conv_ch = d_inner + 2 * G * N
+    return {
+        "w_z": Spec((D, d_inner)),
+        "w_x": Spec((D, d_inner)),
+        "w_B": Spec((D, G * N)),
+        "w_C": Spec((D, G * N)),
+        "w_dt": Spec((D, H)),
+        "conv_w": Spec((cfg.ssm_conv_width, conv_ch), "normal",
+                       fan_in=cfg.ssm_conv_width),
+        "conv_b": Spec((conv_ch,), "zeros"),
+        "dt_bias": Spec((H,), "ssm_dt"),
+        "A_log": Spec((H,), "ssm_a"),
+        "D_skip": Spec((H,), "ones"),
+        "norm": Spec((d_inner,), "ones"),
+        "w_out": Spec((d_inner, D), fan_in=d_inner),
+    }
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = sum_{j < m <= i} dA[m] for i >= j else -inf.  dA: [..., Q]."""
+    Q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dA.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor  # [B, W-1, conv_ch] trailing inputs
+    h: torch.Tensor     # [B, H, N, P] fp32 SSM state
+
+
+def ssd_block(p, x: torch.Tensor, cfg, return_state: bool = False):
+    """Prefill SSD.  x: [B, S, D] -> [B, S, D] (+ final SSMState).
+
+    S must be a multiple of ``min(ssm_chunk, S)``, as in the reference:
+    nothing is padded.
+    """
+    B, S, D = x.shape
+    dtype = x.dtype
+    d_inner = cfg.ssm_expand * D
+    P = cfg.ssm_head_dim
+    H = d_inner // P
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_block: sequence length {S} is not a multiple "
+                         f"of the chunk {Q}")
+    nC = S // Q
+
+    z = torch.matmul(x, p["w_z"].to(dtype))
+    xc = torch.matmul(x, p["w_x"].to(dtype))
+    Bm = torch.matmul(x, p["w_B"].to(dtype))
+    Cm = torch.matmul(x, p["w_C"].to(dtype))
+    dt = torch.matmul(x, p["w_dt"].to(dtype))
+
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+    conv_out = F.silu(common.causal_conv(conv_in, p["conv_w"].to(dtype),
+                                         p["conv_b"].to(dtype)))
+    xc, Bm, Cm = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())                       # [H]
+    dA = dt * A                                              # [B,S,H]
+
+    xh = xc.reshape(B, S, H, P)
+    rep = H // G                     # broadcast groups over heads
+    Bg = Bm.reshape(B, nC, Q, G, N)
+    Cg = Cm.reshape(B, nC, Q, G, N)
+    Bq = Bg.repeat_interleave(rep, dim=3)                    # [B,nC,Q,H,N]
+    Cq = Cg.repeat_interleave(rep, dim=3)
+    xq = xh.reshape(B, nC, Q, H, P)
+    dtq = dt.reshape(B, nC, Q, H)
+    dAq = dA.reshape(B, nC, Q, H)
+
+    # ---- intra-chunk (quadratic): float32 scores of the compute-dtype
+    # inputs, computed once per group (every head of a group has the same)
+    L = torch.exp(_segsum(dAq.permute(0, 1, 3, 2)))         # [B,nC,H,Q,Q]
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cg.float(), Bg.float())
+    M = scores.repeat_interleave(rep, dim=2) * L
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M.to(dtype),
+                           dtq.to(dtype)[..., None] * xq)
+
+    # ---- chunk states: S_c = sum_j exp(dA_end - cs_j) dt_j B_j x_j^T
+    cs = torch.cumsum(dAq, dim=2)                            # [B,nC,Q,H]
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)
+    Sc = torch.einsum("bcqhn,bcqhp->bchnp",
+                      (decay_to_end * dtq).to(dtype)[..., None] * Bq, xq)
+
+    # ---- inter-chunk recurrence: one decay_scan over [nC, B*H*N*P].  The
+    # scan's states are inclusive; the reference's h_prior is exclusive
+    # (h_prior[0] = 0, h_prior[c] = h[c-1]), and its final state h[nC-1].
+    chunk_decay = torch.exp(cs[:, :, -1, :])                 # [B,nC,H]
+    a = chunk_decay.permute(1, 0, 2)[..., None, None].expand(
+        nC, B, H, N, P).reshape(nC, -1).contiguous()
+    u = Sc.float().permute(1, 0, 2, 3, 4).reshape(nC, -1).contiguous()
+    h = ops.decay_scan(a, u).view(nC, B, H, N, P)
+    h_final = h[-1].clone()
+    h_prior = torch.cat([torch.zeros_like(h[:1]), h[:-1]]).permute(
+        1, 0, 2, 3, 4)                                       # [B,nC,H,N,P]
+
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Cq,
+                           h_prior.to(dtype)) \
+        * torch.exp(cs).to(dtype)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + p["D_skip"].to(dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, d_inner)
+    y = common.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = torch.matmul(y, p["w_out"].to(dtype))
+    if return_state:
+        W = cfg.ssm_conv_width
+        # the last W-1 inputs of the conv, zeros before the first token
+        conv = F.pad(conv_in, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
+        return out, SSMState(conv=conv.contiguous(), h=h_final)
+    return out
+
+
+def ssd_init_state(cfg, batch: int, dtype, device) -> SSMState:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    conv_ch = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return SSMState(
+        conv=torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                         dtype=dtype, device=device),
+        h=torch.zeros((batch, H, cfg.ssm_state, cfg.ssm_head_dim),
+                      dtype=torch.float32, device=device))
+
+
+def ssd_decode_step(p, x: torch.Tensor, state: SSMState, cfg):
+    """Single-token SSD step.  x: [B, 1, D] -> ([B, 1, D], state)."""
+    B = x.shape[0]
+    dtype = x.dtype
+    d_inner = cfg.ssm_expand * cfg.d_model
+    P = cfg.ssm_head_dim
+    H = d_inner // P
+    G, N = cfg.ssm_groups, cfg.ssm_state
+
+    xt = x[:, 0]
+    z = xt @ p["w_z"].to(dtype)
+    xc = xt @ p["w_x"].to(dtype)
+    Bm = xt @ p["w_B"].to(dtype)
+    Cm = xt @ p["w_C"].to(dtype)
+    dt = xt @ p["w_dt"].to(dtype)
+
+    conv_in = torch.cat([xc, Bm, Cm], dim=-1)                  # [B, C]
+    hist = torch.cat([state.conv, conv_in[:, None].to(state.conv.dtype)],
+                     dim=1)                                    # [B, W, C]
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist,
+                                   p["conv_w"].to(dtype))
+                      + p["conv_b"].to(dtype))
+    xc, Bm, Cm = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt * A)                                     # [B, H]
+
+    xh = xc.reshape(B, H, P).float()
+    rep = H // G
+    Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1).float()
+    Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1).float()
+
+    h = dA[..., None, None] * state.h \
+        + (dt[..., None] * Bh)[..., None] * xh[:, :, None, :]
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    y = y + p["D_skip"].float()[None, :, None] * xh
+    y = y.reshape(B, d_inner).to(dtype)
+    y = common.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["w_out"].to(dtype)
+    return out[:, None], SSMState(conv=hist[:, 1:], h=h)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import Spec, gelu
+from repro_torch.models.common import Spec, causal_conv, gelu
 
 _C = 8.0  # RG-LRU recurrence-gate temperature
 
@@ -40,17 +40,6 @@ def rglru_specs(cfg) -> dict:
         "lam": Spec((R,), "rglru_a"),                # learnable decay logits
         "w_out": Spec((R, D), fan_in=R),
     }
-
-
-def _causal_conv(x, w, b):
-    """Depthwise causal conv over time as W shifted multiply-adds in x's
-    dtype (the reference's order; ``F.conv1d`` would sum differently)."""
-    W = w.shape[0]
-    out = x * w[W - 1]
-    for i in range(1, W):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
-        out = out + shifted * w[W - 1 - i]
-    return out + b
 
 
 def _gates(p, xr, dtype):
@@ -79,7 +68,7 @@ def rglru_block(p, x: torch.Tensor, cfg, return_state: bool = False):
     B, S, _ = x.shape
     gate = gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
     xr_pre = torch.matmul(x, p["w_x"].to(x.dtype))
-    xr = _causal_conv(xr_pre, p["conv_w"].to(x.dtype),
+    xr = causal_conv(xr_pre, p["conv_w"].to(x.dtype),
                       p["conv_b"].to(x.dtype))
     a, u = _gates(p, xr, x.dtype)
     R = a.shape[-1]

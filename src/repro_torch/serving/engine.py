@@ -1,9 +1,13 @@
 """Serving plane (PyTorch): serve_step factories and a batched generate loop.
 
-The counterpart of ``repro.serving.engine`` for the hybrid family:
+The counterpart of ``repro.serving.engine``:
 
   prefill  (params, tokens [B, S])        -> (last logits, DecodeState)
   decode   (params, state, tokens [B, 1]) -> (logits [B, Vp], DecodeState)
+  encode   (params, frames [B, S, F])     -> logits [B, S, Vp]  (encoder)
+
+An encoder-only architecture (``causal=False``) has no decode step: its
+"prefill" step is the encoder, and a decode step is refused.
 
 ``generate`` drives prefill + greedy/temperature decode.  Greedy decoding
 is the same function as the reference's; sampling at a temperature above
@@ -24,6 +28,12 @@ def make_serve_step(run: RunConfig, kind: str, *,
                     max_len: Optional[int] = None):
     mcfg = run.model
     if kind == "prefill":
+        if not mcfg.causal:
+            def encode_step(params, frames):
+                return backbone.encode(params, mcfg, frames,
+                                       compute_dtype=compute_dtype)
+            return encode_step
+
         def prefill_step(params, tokens):
             return backbone.prefill(params, mcfg, tokens, max_len=max_len,
                                     compute_dtype=compute_dtype,
@@ -31,6 +41,10 @@ def make_serve_step(run: RunConfig, kind: str, *,
         return prefill_step
 
     if kind == "decode":
+        if not mcfg.causal:
+            raise ValueError(f"{mcfg.name} is encoder-only: it has no "
+                             f"decode step")
+
         def decode_step(params, state, tokens):
             return backbone.decode_step(params, mcfg, state, tokens,
                                         compute_dtype=compute_dtype)

@@ -532,3 +532,125 @@ def test_sharded_engine_ranks_on_the_card(cuda_device, n, backend):
         assert np.array_equal(full[perm].view(np.uint8),
                               x.cpu().numpy().view(np.uint8)), i
     assert merged == dict(sink.stores[0].data) and merged
+
+
+def _bf16_ratio(got, want):
+    """The largest |got - want| over the bf16 limit: two ulps of each value
+    plus 2^-7 of its row's largest value (``chip_smoke.py`` phase 4)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    limit = 2.0 ** -6 * want.abs() + \
+        2.0 ** -7 * want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() / limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [4, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_dense_head_dims_vs_plain(cuda_device, D, causal, G,
+                                                  dtype):
+    """The head widths of the dense and audio families (Qwen3, Yi and
+    Command-R: 128; HuBERT: 80, where the second 64-column TMA box is
+    mostly past D) at a ragged length, global causal and non-causal, GQA
+    groups of 4 and 12, against the plain version on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, Kh, S = 2, 2, 300
+    gen = torch.Generator(device=cuda_device).manual_seed(D * G + causal)
+    q = torch.randn(B, Kh * G, S, D, generator=gen, device=cuda_device)
+    k, v = (torch.randn(B, Kh, S, D, generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
+    launches = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 1
+    assert bool(torch.isfinite(got).all())
+    if dtype == "bfloat16":
+        ratio = _bf16_ratio(got, want)
+        assert ratio <= 1.0, f"error at {ratio} of the limit"
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_decay_scan_bitwise_at_the_mamba2_chunk_shape(cuda_device, with_h0):
+    """Mamba-2's inter-chunk recurrence at batch 2 and S = 4096: 16 chunks
+    over B*H*N*P = 1,310,720 channels, bitwise equal to the plain loop."""
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import ref
+
+    T, C = 16, 1_310_720
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    a = torch.rand(T, C, generator=gen, device=cuda_device)
+    u = torch.randn(T, C, generator=gen, device=cuda_device)
+    h0 = torch.randn(C, generator=gen, device=cuda_device) if with_h0 \
+        else None
+    launches = ds.launches
+    got = ops.decay_scan(a, u, h0)
+    want = ref.decay_scan_ref(a, u, h0)
+    torch.cuda.synchronize()
+    assert ds.launches == launches + 1
+    assert _bitwise(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-9b", "smollm-360m",
+                                  "command-r-plus-104b", "mamba2-2.7b",
+                                  "hubert-xlarge"])
+def test_family_serve_steps_on_card_match_cpu(cuda_device, arch):
+    """The smoke config of each dense, SSM and audio arch in float32:
+    prefill and four decode steps (the encoder: one encode) on the card,
+    through the kernels, against the CPU with the plain versions, same
+    weights; logits within rtol = atol = 5e-4 (float32 sums in another
+    order, as the JAX parity tests allow), one kernel launch per layer."""
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone
+    from repro_torch.serving.engine import make_serve_step
+
+    run = load_smoke_config(arch)
+    cfg = run.model
+    params = backbone.init_params(cfg, torch.Generator().manual_seed(5),
+                                  torch.float32, "cpu")
+    card = backbone.init_params(cfg, torch.Generator().manual_seed(5),
+                                torch.float32, "cpu").to(cuda_device)
+    rng = np.random.default_rng(5)
+    kw = dict(compute_dtype=torch.float32, max_len=36)
+    if not cfg.causal:
+        x = torch.tensor(rng.normal(size=(2, 32, cfg.frame_dim)),
+                         dtype=torch.float32)
+        runs = [(x, None)]
+    else:
+        x = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)))
+        runs = [(x, torch.tensor(rng.integers(0, cfg.vocab_size, (2, 4))))]
+    kinds = backbone.layer_plan(cfg).kinds
+    want_launches = (kinds.count("ssd"), kinds.count("attn"))
+    for prompt, steps in runs:
+        outs = []
+        for p, dev in ((params, "cpu"), (card, cuda_device)):
+            prefill = make_serve_step(run, "prefill", **kw)
+            before = (ds.launches, fa.launches)
+            with torch.inference_mode():
+                out = prefill(p, prompt.to(dev))
+                got = [out if steps is None else out[0]]
+                if steps is not None:
+                    decode = make_serve_step(
+                        run, "decode", compute_dtype=torch.float32)
+                    state = out[1]
+                    for t in range(steps.shape[1]):
+                        logits, state = decode(p, state,
+                                               steps[:, t:t + 1].to(dev))
+                        got.append(logits)
+            launched = (ds.launches - before[0], fa.launches - before[1])
+            assert launched == ((0, 0) if dev == "cpu" else want_launches)
+            outs.append([g.cpu() for g in got])
+        for w, g in zip(*outs):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-4,
+                                       atol=5e-4)

@@ -34,7 +34,8 @@ from repro.models import attention as jattn                   # noqa: E402
 from repro.models import backbone as jbb                      # noqa: E402
 from repro.models import rglru as jrglru                      # noqa: E402
 from repro.serving import engine as jengine                   # noqa: E402
-from repro_torch.configs.base import load_config, load_smoke_config  # noqa
+from repro_torch.configs.base import (ARCH_IDS, load_config,  # noqa: E402
+                                      load_smoke_config)
 from repro_torch.kernels import decay_scan as ds              # noqa: E402
 from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention, backbone, rglru     # noqa: E402
@@ -110,7 +111,7 @@ def test_layer_plan_and_param_count():
     assert plan.kinds.count("rec") == 18 and plan.kinds.count("attn") == 8
     assert plan.suffix == ("rec", "rec")
     with pytest.raises(ValueError, match="not ported"):
-        load_config("qwen3-4b")
+        load_config("qwen2-moe-a2.7b")
 
 
 @pytest.mark.parametrize("loader", ["load_config", "load_smoke_config"])
@@ -271,13 +272,24 @@ def test_sampling_draws_from_the_generator(model):
     assert _np(draw(1)).shape == (2, 14)
 
 
-def test_serve_cli_smoke_on_cpu(capsys):
-    serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                "--requests", "2", "--batch", "2", "--prompt-len", "20",
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_cli_smoke_on_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                "--requests", "2", "--batch", "2", "--prompt-len", "32",
                 "--new-tokens", "4"])
     out = capsys.readouterr().out
-    assert "batch 0: prefill ok, decoded 4 tokens" in out
-    assert "served 2 requests on cpu" in out
+    if load_smoke_config(arch).model.causal:
+        assert "batch 0: prefill ok, decoded 4 tokens" in out
+        assert "served 2 requests on cpu" in out
+    else:                               # the encoder encodes frames
+        assert "encoded 2x32 frames -> (2, 32, 128) on cpu" in out
+
+
+def test_serve_cli_defaults_to_recurrentgemma(monkeypatch):
+    seen = []
+    monkeypatch.setattr(serve, "_serve_llm", lambda a: seen.append(a.arch))
+    serve.main([])
+    assert seen == [ARCH]
 
 
 def test_port_imports_neither_jax_nor_repro():
