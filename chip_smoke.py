@@ -7,7 +7,7 @@ It builds the port's three CUDA kernels from this checkout's sources
 (``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
 for ``sm_90a``, all started together, into ``build/``), checks with
 ``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
-(tensor-core) instructions, then runs ten phases; any failure raises
+(tensor-core) instructions, then runs eleven phases; any failure raises
 (in a rank too) and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
@@ -36,8 +36,10 @@ for ``sm_90a``, all started together, into ``build/``), checks with
    ``flash_attention`` against its plain version on the card over MHA,
    GQA, MQA, causal, window, softcap, non-causal and ragged shapes, the
    serving shapes at batch 1 and 2, and the attention of each phase-10
-   model (head widths 64, 80 and 128, GQA groups of 1 to 12, global
-   causal and non-causal, Command-R+'s at batch 1), in float32 (rtol =
+   and phase-11 model (head widths 64, 80 and 128, GQA groups of 1 to 12,
+   global causal and non-causal, Command-R+'s at batch 1, Llama-3.2-
+   Vision's cross-attention of 4096 queries over 1600 vision tokens and a
+   small ragged non-causal Sq > Skv case), in float32 (rtol =
    atol = 2e-4, the JAX suite's) and bfloat16 (``|got - want| <=
    2^-6 |want| + 2^-7 m``, with m the largest ``|want|`` of the same
    query row: two bfloat16 ulps of each value, plus a floor tied to the
@@ -45,8 +47,8 @@ for ``sm_90a``, all started together, into ``build/``), checks with
    to a few hundredths while a row with one key keeps them whole); then
    each kernel's, its plain version's and (attention only) PyTorch's
    ``scaled_dot_product_attention``'s times at the serving shapes, and at
-   each phase-10 model's shapes (the scan at Mamba-2's [16, 1,310,720] is
-   in the bitwise grid too).
+   each phase-10 and phase-11 model's shapes (the scan at Mamba-2's [16,
+   1,310,720] is in the bitwise grid too).
 5. Serving: ``recurrentgemma-2b`` at full width and depth (2,894,574,080
    parameters, bfloat16, seeded random weights on the card) serves 2
    requests at batch 2: a 4096-token prompt (twice the window, so the
@@ -161,11 +163,43 @@ for ``sm_90a``, all started together, into ``build/``), checks with
    is printed and the gate is the same request in float32, within 1e-3.
    Each record carries the card's name and power limit.
 
-After phase 10 the ``scaled_dot_product_attention`` call of phase 4 is
+11. The MoE and vision families (it runs after phase 10), one model at
+   a time with fresh seeded bfloat16 weights on the card, freed before the
+   next; the gates the reference starts at 0 (cross-attention's tanh
+   gates, the shared experts' sigmoid gate) are drawn from the seed, so
+   those paths reach the logits.  (a) ``qwen2-moe-a2.7b`` at full width
+   and depth (24 layers, 60 of 64 experts routed top-4, 4 shared;
+   15,146,305,536 parameters) serves a warm-up request, then batch 2 with
+   a 4096-token prompt and 32 greedy steps; (b) ``kimi-k2-1t-a32b`` at
+   full width with 2 of its 61 layers (its dense layer and one MoE layer
+   of 384 experts, top-8; 19,967,682,560 parameters: 2.06 TB at full
+   depth, ``reduced``) and (c) ``llama-3.2-vision-90b`` at full width with
+   25 of its 100 layers (20 self- and 5 cross-attention; 23,492,714,506
+   parameters: 175 GB at full depth, ``reduced``) with seeded
+   ``image_embeds`` [2, 1600, 8192] serve 2 x 4096 tokens and 8 steps.
+   Each prefill must call ``flash_attention`` once per ``attn``, ``moe``
+   and ``cross`` layer, causal over the prompt and non-causal over the
+   1600 vision tokens, in the plan's order; each MoE layer's
+   ``moe_drop_frac`` is printed; logits finite, parameters and caches on
+   the card.  Each model's decode is checked against a teacher-forced
+   forward on a short request (96 + 32 tokens at batch 2: 256 tokens, so
+   the capacity floor of 256 lets no MoE choice drop on either side), in
+   float32 within 1e-3 and in bfloat16, within 0.1 for Llama; routing is
+   discontinuous, so in bfloat16 the two paths' roundings flip near-tied
+   experts of some tokens and the MoE models' bfloat16 drift is printed,
+   not gated.  (d) ``moe_ep`` as 4 gloo ranks on the card (16 of Qwen2-
+   MoE's 64 experts a rank) and on a 1-rank NCCL mesh, on one full-width
+   MoE layer and tokens [2, 4096, 2048]: at capacity factor 8 equal to the
+   dense ``moe`` within the bfloat16 attention limit of phase 4, no drops,
+   exactly 2 all-to-alls a call on every rank; at the config's 1.25 both
+   drop fractions are printed, with the times of both.
+
+After phase 11 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
 its default dispatch picked is named (matched by the kernels it
-launches); so is ``scaled_dot_product_attention`` at each phase-10
-model's attention shape (``is_causal``, no mask).
+launches); so is ``scaled_dot_product_attention`` at each phase-10 and
+phase-11 model's attention shape (``is_causal`` or non-causal, no
+mask).
 
 Earlier lines print JSON records (phase 8's and 9's carry the card's name
 and power limit); the line before the last is the kernel table, the last is
@@ -174,6 +208,7 @@ device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -207,6 +242,14 @@ DENSE_ATTN = {"qwen3-4b": (32, 8, 128, True),
               "smollm-360m": (15, 5, 64, True),
               "yi-9b": (32, 4, 128, True),
               "command-r-plus-104b": (96, 8, 128, True)}
+# the attention of each MoE or vision model's prefill (phase 11, batch 2,
+# a 4096-token prompt): (H, Kh, Skv, D, causal); Kimi-K2 and Llama's self
+# attention share one shape, Llama's cross-attention reads the 1600 vision
+# tokens
+MOE_VISION_ATTN = {"qwen2-moe-a2.7b": (16, 16, PROMPT, 128, True),
+                   "kimi-k2-1t-a32b+llama-3.2-vision-90b":
+                       (64, 8, PROMPT, 128, True),
+                   "llama-3.2-vision-90b/cross": (64, 8, 1600, 128, False)}
 GRID_BATCH = {"command-r-plus-104b": 1}
 # (B, H, Kh, Sq, Skv, D, causal, window, softcap)
 ATTN_CASES = [(2, 4, 4, 64, 64, 32, True, 0, 0.0),       # MHA
@@ -227,7 +270,10 @@ ATTN_CASES = [(2, 4, 4, 64, 64, 32, True, 0, 0.0),       # MHA
               (2, 24, 2, 333, 333, 128, False, 0, 0.0),
               (2, 24, 2, 200, 333, 128, True, 0, 0.0)] + \
     [(GRID_BATCH.get(a, SERVE_BATCH), h, kh, PROMPT, PROMPT, d, c, 0, 0.0)
-     for a, (h, kh, d, c) in DENSE_ATTN.items()]
+     for a, (h, kh, d, c) in DENSE_ATTN.items()] + \
+    [(2, 8, 2, 333, 100, 128, False, 0, 0.0)] + \
+    [(SERVE_BATCH, h, kh, PROMPT, skv, d, c, 0, 0.0)
+     for h, kh, skv, d, c in MOE_VISION_ATTN.values()]
 F32_TOL = 2e-4                         # rtol = atol
 BF16_RTOL, BF16_FLOOR = 2.0 ** -6, 2.0 ** -7   # of |want|, of its row's max
 DECODE_REL_L2 = 0.1
@@ -247,11 +293,30 @@ FAMILIES = [("qwen3-4b", None, SERVE_BATCH, PROMPT, NEW_TOKENS),
             ("command-r-plus-104b", 12, SERVE_BATCH, PROMPT, 8)]
 TEACHER_FORCED = ("qwen3-4b", "mamba2-2.7b")
 SSD_CHECK_PROMPT = 96          # + 32 fed tokens = one SSD chunk of 128
-# Mamba-2's decode against its teacher-forced forward, both in float32:
-# float32 rounding (2^-24) amplified as much as the bfloat16 run's drift
-# is amplified (0.1 from 2^-8) stays near 1e-6; 1e-3 keeps the margin and
-# still sees any wrong position, chunk or state (errors of order 1)
-SSD_F32_REL_L2 = 1e-3
+# a decode against its teacher-forced forward, both in float32 (Mamba-2,
+# the MoE models): float32 rounding (2^-24) amplified as much as the
+# bfloat16 run's drift is amplified (0.1 from 2^-8) stays near 1e-6; 1e-3
+# keeps the margin and still sees any wrong position, chunk, state or
+# routing (errors of order 1)
+F32_REL_L2 = 1e-3
+# phase 11: (arch, layers kept or None for all, decode steps, parameters);
+# Kimi-K2 keeps its dense layer and one MoE layer of 61 (2.06 TB in bf16 at
+# full depth, 74.1 GB at 3 layers), Llama-3.2-Vision 20 self- and 5
+# cross-attention layers of 100 (175 GB at full depth)
+MOE_VISION = [("qwen2-moe-a2.7b", None, NEW_TOKENS, 15_146_305_536),
+              ("kimi-k2-1t-a32b", 2, 8, 19_967_682_560),
+              ("llama-3.2-vision-90b", 25, 8, 23_492_714_506)]
+# the teacher-forced request of phase 11: 2 x (96 + 32) = 256 tokens, so
+# no MoE choice can pass the capacity floor of 256 in the prefill, the
+# decode or the forward
+MOE_CHECK_PROMPT = 96
+EP_RANKS, EP_TIMEOUT_S = 4, 600.0      # phase 11 (d)
+EP_NO_DROP_CF = 8.0                    # the JAX test's capacity factor
+# phase 11 (e): forced capacities (slots an expert) of the dense moe on
+# 2 x 4096 tokens, which bring 8192 x 4 / 60 = 546 choices an expert on
+# average, and the dtypes each is run in
+MOE_DROP_CASES = ((256, torch.float32), (512, torch.float32),
+                  (256, torch.bfloat16))
 N_SLOTS, SINK_GROUP, SCORER_HIDDEN = 100_000, 4, 64
 WORKER_EVENTS = 16_384
 FE_BATCH, FE_WAIT_S = 256, 2e-3        # the JAX bench_serving.py defaults
@@ -1333,20 +1398,28 @@ def time_backends(call, with_math: bool) -> dict:
             "default_kernels": sorted(name[:100] for name in default)}
 
 
+def model_attention_shapes():
+    """(label, H, Kh, Skv, D, causal) of each phase-10 and phase-11 model's
+    prefill attention at batch 2 over a 4096-token prompt."""
+    return [(a, h, kh, PROMPT, d, c) for a, (h, kh, d, c)
+            in DENSE_ATTN.items()] + \
+        [(a, *shape) for a, shape in MOE_VISION_ATTN.items()]
+
+
 def sdpa_dense_backends(device) -> dict:
-    """``scaled_dot_product_attention`` at each dense or audio model's
-    prefill shape (``is_causal``, no mask, ``enable_gqa``) through
-    ``time_backends``; the math backend is left out (the plain version's
-    time stands for it).  Run after the serving phases, like
+    """``scaled_dot_product_attention`` at each phase-10 and phase-11
+    model's prefill shape (``is_causal`` or none, no mask, ``enable_gqa``)
+    through ``time_backends``; the math backend is left out (the plain
+    version's time stands for it).  Run after the serving phases, like
     ``sdpa_backends``."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=device).manual_seed(9)
     out = {}
-    for arch, (H, Kh, D, causal) in DENSE_ATTN.items():
+    for arch, H, Kh, Skv, D, causal in model_attention_shapes():
         q = torch.randn(SERVE_BATCH, H, PROMPT, D, generator=gen,
                         device=device, dtype=torch.bfloat16)
-        k, v = (torch.randn(SERVE_BATCH, Kh, PROMPT, D, generator=gen,
+        k, v = (torch.randn(SERVE_BATCH, Kh, Skv, D, generator=gen,
                             device=device, dtype=torch.bfloat16)
                 for _ in range(2))
         out[arch] = time_backends(
@@ -1449,8 +1522,8 @@ def phase_serving_kernels(device):
         del q, k, v, mask
 
     # the new paths' shapes: Mamba-2's chunk recurrence (the chunk decay
-    # broadcast over N x P makes ``a`` a full [T, C] read) and each dense
-    # or audio model's prefill attention
+    # broadcast over N x P makes ``a`` a full [T, C] read) and each
+    # phase-10 and phase-11 model's prefill attention
     T, C = SSD_SCAN
     a = torch.rand(T, C, generator=gen, device=device)
     u = torch.randn(T, C, generator=gen, device=device)
@@ -1461,15 +1534,15 @@ def phase_serving_kernels(device):
         "bound_ms": 1e3 * 12 * T * C / HBM_BYTES_PER_S,
         "bound_by": "bytes", "library_ms": None}
     del a, u
-    for arch, (H, Kh, D, causal) in DENSE_ATTN.items():
+    for arch, H, Kh, Skv, D, causal in model_attention_shapes():
         B, S = SERVE_BATCH, PROMPT
         q = torch.randn(B, H, S, D, generator=gen, device=device,
                         dtype=torch.bfloat16)
-        k, v = (torch.randn(B, Kh, S, D, generator=gen, device=device,
+        k, v = (torch.randn(B, Kh, Skv, D, generator=gen, device=device,
                             dtype=torch.bfloat16) for _ in range(2))
-        bound, by = attention_bound(B, H, Kh, S, S, D, causal, 0, 2)
+        bound, by = attention_bound(B, H, Kh, S, Skv, D, causal, 0, 2)
         times["flash_attention"][arch] = {
-            "shape": [B, H, Kh, S, S, D], "causal": causal,
+            "shape": [B, H, Kh, S, Skv, D], "causal": causal,
             "dtype": "bfloat16",
             "ms": cuda_ms(lambda: fa.flash_attention_cuda(
                 q, k, v, causal=causal), 10),
@@ -1488,13 +1561,15 @@ def on_device(tensors, device) -> bool:
     return all(t.device == device for t in tensors)
 
 
-def drive_request(run, params, prompts, steps, dtype=torch.bfloat16):
-    """One request on the serving path: the prefill of ``prompts``, then
-    ``steps`` greedy decode steps, computed in ``dtype``.  The kernels'
-    counts are set to 0 just before and read just after.  Returns the
-    logits of each step (the prefill's first), the tokens fed, the last
-    state, the prefill's and the decode's seconds and the launch
-    counts."""
+def drive_request(run, params, prompts, steps, dtype=torch.bfloat16,
+                  image_embeds=None, layer_metrics=None):
+    """One request on the serving path: the prefill of ``prompts`` (with
+    ``image_embeds`` for the vision family; each layer's MoE metrics into
+    ``layer_metrics``), then ``steps`` greedy decode steps, computed in
+    ``dtype``.  The kernels' counts are set to 0 just before and read just
+    after.  Returns the logits of each step (the prefill's first), the
+    tokens fed, the last state, the prefill's and the decode's seconds and
+    the launch counts."""
     from repro_torch.kernels import decay_scan as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.engine import make_serve_step, sample_token
@@ -1505,7 +1580,7 @@ def drive_request(run, params, prompts, steps, dtype=torch.bfloat16):
     decode = make_serve_step(run, "decode", compute_dtype=dtype)
     ds.launches = fa.launches = 0
     t0 = time.perf_counter()
-    logits, state = prefill(params, prompts)
+    logits, state = prefill(params, prompts, image_embeds, layer_metrics)
     tok = sample_token(logits, None, temperature=0.0, vocab_size=vocab)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -1523,7 +1598,8 @@ def drive_request(run, params, prompts, steps, dtype=torch.bfloat16):
 
 
 def teacher_forced(params, cfg, prompts, fed, step_logits, expected, *,
-                   dtype=torch.bfloat16, limit=DECODE_REL_L2):
+                   dtype=torch.bfloat16, limit=DECODE_REL_L2,
+                   image_embeds=None):
     """Each step's logits against a forward over prompt + fed tokens in
     ``dtype``, at the positions the prefill and the decode steps predicted
     from, within a relative L2 error of ``limit`` (None: measured only);
@@ -1536,7 +1612,8 @@ def teacher_forced(params, cfg, prompts, fed, step_logits, expected, *,
     P = prompts.shape[1]
     t0 = time.perf_counter()
     seq = torch.cat([prompts] + fed, dim=1)
-    hidden = backbone.forward_hidden(params, cfg, seq, compute_dtype=dtype)
+    hidden = backbone.forward_hidden(params, cfg, seq, compute_dtype=dtype,
+                                     image_embeds=image_embeds)
     want = backbone.logits_from_hidden(params, cfg,
                                        hidden[:, P - 1:P + len(fed)])
     torch.cuda.synchronize()
@@ -1564,12 +1641,14 @@ def teacher_forced(params, cfg, prompts, fed, step_logits, expected, *,
 
 def kernel_launches(cfg) -> dict:
     """The launches one prefill (or forward) of ``cfg`` must make: one
-    scan per ``rec`` and ``ssd`` layer, one attention per ``attn``."""
+    scan per ``rec`` and ``ssd`` layer, one attention per ``attn``,
+    ``moe`` and ``cross`` layer."""
     from repro_torch.models import backbone
 
     kinds = backbone.layer_plan(cfg).kinds
     return {"decay_scan": kinds.count("rec") + kinds.count("ssd"),
-            "flash_attention": kinds.count("attn")}
+            "flash_attention": sum(kinds.count(k)
+                                   for k in ("attn", "moe", "cross"))}
 
 
 def seeded_model(run, device, seed):
@@ -1589,7 +1668,8 @@ def seeded_model(run, device, seed):
     return params, gen, n_params, init_s
 
 
-def serve_on_card(run, params, prompts, steps, device):
+def serve_on_card(run, params, prompts, steps, device, image_embeds=None,
+                  layer_metrics=None):
     """A warm-up request (the model's first prefill also pays for the
     allocator's growth and cuBLAS's first calls: its time is the cold
     one), then the main request, checked for its launches, finite logits
@@ -1597,10 +1677,13 @@ def serve_on_card(run, params, prompts, steps, device):
     ``drive_request`` result and its record."""
     cfg = run.model
     with torch.inference_mode():
-        cold_prefill_s = drive_request(run, params, prompts, 1)[3]
+        cold_prefill_s = drive_request(run, params, prompts, 1,
+                                       image_embeds=image_embeds)[3]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        out = drive_request(run, params, prompts, steps)
+        out = drive_request(run, params, prompts, steps,
+                            image_embeds=image_embeds,
+                            layer_metrics=layer_metrics)
     step_logits, _, state, prefill_s, decode_s, launches = out
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     check(launches == kernel_launches(cfg),
@@ -1670,13 +1753,13 @@ def phase_blocks(device):
         p_card = copy.deepcopy(p_cpu).to(device)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            want, wcache = backbone.apply_block(kind, p_cpu, x, cfg,
-                                                positions,
-                                                collect_cache=True)
+            want, _, wcache = backbone.apply_block(kind, p_cpu, x, cfg,
+                                                   positions,
+                                                   collect_cache=True)
             cpu_s = time.perf_counter() - t0
             before = counter.launches
             t0 = time.perf_counter()
-            got, gcache = backbone.apply_block(
+            got, _, gcache = backbone.apply_block(
                 kind, p_card, x.to(device), cfg, positions.to(device),
                 collect_cache=True)
             torch.cuda.synchronize()
@@ -1759,8 +1842,8 @@ def check_teacher_forced(run, params, gen, out, prompts, device):
     port (``tests/test_torch_mamba2.py::
     test_bf16_decode_drift_is_the_references``).  So its bfloat16 drift
     is measured and printed, and the gate is the same request computed in
-    float32, where decode and forward agree to rounding:
-    ``SSD_F32_REL_L2``."""
+    float32, where decode and forward agree to rounding: ``F32_REL_L2``
+    (``short_request_checks``)."""
     cfg = run.model
     expected = kernel_launches(cfg)
     if cfg.family != "ssm":
@@ -1774,21 +1857,131 @@ def check_teacher_forced(run, params, gen, out, prompts, device):
     prompts = torch.randint(0, cfg.vocab_size,
                             (prompts.shape[0], SSD_CHECK_PROMPT),
                             generator=gen, device=device)
-    rec = {"teacher_forced_tokens": SSD_CHECK_PROMPT + NEW_TOKENS}
-    for dtype, limit in ((torch.bfloat16, None),
-                         (torch.float32, SSD_F32_REL_L2)):
-        with torch.inference_mode():
+    return short_request_checks(run, params, prompts, None)
+
+
+def short_request_checks(run, params, prompts, bf16_limit,
+                         image_embeds=None):
+    """A short request (``prompts``, then ``NEW_TOKENS`` greedy steps)
+    against its teacher-forced forward twice: in bfloat16 within
+    ``bf16_limit`` (None: the drift is measured and printed only), and in
+    float32 (the bfloat16 weights upcast in each product) within
+    ``F32_REL_L2``.  Each run must launch the kernels as the plan says.
+
+    Routing is discontinuous: the two sides round the hidden states apart,
+    and where the router is near a tie one picks other experts than the
+    other, an order-1 change that later layers carry to every later
+    position.  So a MoE model's forward takes the request's own expert
+    choices (``router_calls``), and the limit holds every step; each token
+    and layer where the forward's own top k differs must be a near tie
+    (``routing_flips``); the drift of a forward that routes for itself is
+    printed beside it."""
+    from repro_torch.models import backbone
+
+    cfg = run.model
+    expected = kernel_launches(cfg)
+    B, P = prompts.shape
+    L = backbone.layer_plan(cfg).kinds.count("moe")
+    rec = {"teacher_forced_tokens": P + NEW_TOKENS}
+    for dtype, limit in ((torch.bfloat16, bf16_limit),
+                         (torch.float32, F32_REL_L2)):
+        name = str(dtype).split(".")[-1]
+        with torch.inference_mode(), router_calls() as serve:
             step_logits, fed, _, _, _, launches = drive_request(
-                run, params, prompts, NEW_TOKENS, dtype)
-            check(launches == expected,
-                  f"{cfg.name}: short request launched {launches}")
+                run, params, prompts, NEW_TOKENS, dtype, image_embeds)
+        check(launches == expected,
+              f"{cfg.name}: short request launched {launches}")
+        forced = serve_routing(serve, L, B, P, NEW_TOKENS) if L else None
+        with torch.inference_mode(), router_calls(
+                None if forced is None else forced[1]) as forward:
             teacher_s, agree = teacher_forced(
                 params, cfg, prompts, fed, step_logits, expected,
-                dtype=dtype, limit=limit)
-        name = str(dtype).split(".")[-1]
+                dtype=dtype, limit=limit, image_embeds=image_embeds)
+        if L:
+            agree["routing"] = routing_flips(*forced, forward, B,
+                                             P + NEW_TOKENS)
+            with torch.inference_mode():
+                agree["free_routing"] = teacher_forced(
+                    params, cfg, prompts, fed, step_logits, expected,
+                    dtype=dtype, limit=None, image_embeds=image_embeds)[1]
         rec[f"teacher_forced_s_{name}"] = teacher_s
         rec[f"vs_teacher_forced_{name}"] = agree
     return rec
+
+
+@contextlib.contextmanager
+def router_calls(forced=None):
+    """The router logits over the logical experts (float32, [T, E]) and
+    the expert ids it chose ([T, k]) at every ``ffn.route`` call in the
+    block, in order.  With ``forced`` (one [T, k] id tensor a call), the
+    i-th call goes on with ``forced[i]``'s experts instead of its own,
+    weighted by its own probabilities renormalised over them; the record
+    keeps its own choice."""
+    from repro_torch.models import ffn
+
+    calls, inner = [], ffn.route
+
+    def recorded(xf, router_w, num_experts, top_k):
+        gate_w, eid, aux, z = inner(xf, router_w, num_experts, top_k)
+        logits = torch.matmul(xf.float(), router_w.float())[:, :num_experts]
+        calls.append((logits, eid))
+        if forced is not None:
+            eid = forced[len(calls) - 1]
+            gate_w = torch.softmax(logits, dim=-1).gather(1, eid)
+            gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True),
+                                              1e-9)
+        return gate_w, eid, aux, z
+    ffn.route = recorded
+    try:
+        yield calls
+    finally:
+        ffn.route = inner
+
+
+def serve_routing(serve, L, B, P, N):
+    """A request's router calls (its prefill over B x P tokens, then N
+    decode steps of B tokens, one call a MoE layer each) as one call a
+    layer over the P + N positions, in the forward's token order: (router
+    logits [B (P + N), E] a layer, expert ids [B (P + N), k] a layer)."""
+    check(len(serve) == L * (N + 1),
+          f"{len(serve)} router calls for {L} MoE layers and {N} steps")
+
+    def by_layer(l, j):
+        parts = [serve[l][j].view(B, P, -1)] + [
+            serve[L * (n + 1) + l][j].view(B, 1, -1) for n in range(N)]
+        return torch.cat(parts, 1).flatten(0, 1)
+    return ([by_layer(l, 0) for l in range(L)],
+            [by_layer(l, 1) for l in range(L)])
+
+
+def routing_flips(s_logits, s_ids, forward, B, Q) -> dict:
+    """The request's routing (``serve_routing``) against the choices the
+    forward would have made on its own router logits (``forward``: its
+    ``router_calls``, one a layer over the B x Q tokens).  A flip is a
+    (token, layer) where the two top-k sets differ.  Each flip must be a
+    near tie: the forward's logits of the swapped experts differ by at
+    most twice the largest difference of the two sides' logits there, as
+    they must if each side took the top k of its own logits, and those
+    logits agree within ``DECODE_REL_L2``."""
+    gaps, diffs, rels, where = [], [], [], []
+    for l, (s, ids, (f, fids)) in enumerate(zip(s_logits, s_ids, forward)):
+        flipped = (ids.sort(-1).values != fids.sort(-1).values).any(-1)
+        for t in flipped.nonzero().flatten().tolist():
+            S, F = set(ids[t].tolist()), set(fids[t].tolist())
+            gaps.append(float(f[t, sorted(F - S)].min()
+                              - f[t, sorted(S - F)].max()))
+            diffs.append(float((s[t] - f[t]).abs().max()))
+            rels.append(float((s[t] - f[t]).norm() / f[t].norm()))
+            where.append([t // Q, t % Q, l])          # row, position, layer
+            check(gaps[-1] <= 2 * diffs[-1] + 1e-6 * float(f[t].abs().max())
+                  and rels[-1] <= DECODE_REL_L2,
+                  f"routing flip at (row, position, layer) {where[-1]} is "
+                  f"no near tie: gap {gaps[-1]}, logits differ by "
+                  f"{diffs[-1]} ({rels[-1]} relative)")
+    return {"flips": len(where), "flips_at": where,
+            "max_router_logit_gap": max(gaps, default=0.0),
+            "max_router_logit_diff": max(diffs, default=0.0),
+            "max_router_rel_l2": max(rels, default=0.0)}
 
 
 def encode_on_card(run, params, gen, batch, length, device):
@@ -1831,6 +2024,327 @@ def encode_on_card(run, params, gen, batch, length, device):
             "logits_shape": list(logits.shape), "cold_encode_s": cold_s,
             "encode_s": encode_s, "frames_per_s": batch * length / encode_s,
             "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+# ------------------------------------- phase 11: MoE and vision families
+def draw_gates(params, gen) -> None:
+    """The gates the reference starts at 0, drawn from ``gen`` instead:
+    the cross layers' tanh gates from U(0.5, 1.5) (at 0 they would
+    multiply cross-attention and its MLP by 0) and the shared experts'
+    sigmoid gate from N(0, 1/d), so both reach the logits."""
+    with torch.no_grad():
+        for layer in params["layers"]:
+            for name in ("gate_attn", "gate_mlp"):
+                if name in layer:
+                    layer[name].uniform_(0.5, 1.5, generator=gen)
+            if "moe" in layer and "shared_gate" in layer["moe"]:
+                g = layer["moe"]["shared_gate"]
+                g.normal_(0.0, g.shape[0] ** -0.5, generator=gen)
+
+
+@contextlib.contextmanager
+def attention_calls():
+    """(causal, Skv) of every ``ops.flash_attention`` call in the block,
+    in order; the calls go on to the kernel."""
+    from repro_torch.kernels import ops
+
+    calls, inner = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((bool(kw["causal"]), int(k.shape[2])))
+        return inner(q, k, v, **kw)
+    ops.flash_attention = recorded
+    try:
+        yield calls
+    finally:
+        ops.flash_attention = inner
+
+
+def phase_moe_vision(device):
+    """Phase 11 (a)-(c): the MoE and vision families served on the card in
+    bfloat16 with fresh seeded weights (non-zero gates), one model at a
+    time, each freed before the next.  Returns the launches of each
+    model's main path."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import backbone
+
+    card = card_name_and_limit()
+    launches = {}
+    for arch, layers, steps, want_params in MOE_VISION:
+        run = load_config(arch)
+        full = run.model
+        if layers is not None:
+            run = dc.replace(run, model=dc.replace(full, num_layers=layers))
+        cfg = run.model
+        params, gen, n_params, init_s = seeded_model(run, device, 11)
+        check(n_params == want_params, f"{arch}: {n_params} parameters")
+        draw_gates(params, gen)
+        kinds = backbone.layer_plan(cfg).kinds
+        rec = {"arch": arch, "family": cfg.family, "params": n_params,
+               "active_params": backbone.active_params(cfg),
+               "dtype": "bfloat16", "batch": SERVE_BATCH, "prompt": PROMPT,
+               "decode_steps": steps, "init_s": init_s, "card": card}
+        if layers is not None:
+            rec["reduced"] = {"num_layers": [full.num_layers, layers],
+                              "params_full_depth":
+                                  backbone.count_params(full)}
+        image = None
+        if cfg.family == "vlm":
+            image = torch.randn(SERVE_BATCH, cfg.num_vision_tokens,
+                                cfg.d_model, generator=gen, device=device,
+                                dtype=torch.bfloat16)
+            rec["image_embeds"] = list(image.shape)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                generator=gen, device=device)
+        metrics = []
+        with attention_calls() as calls:
+            out, serve_rec = serve_on_card(run, params, prompts, steps,
+                                           device, image, metrics)
+        rec.update(serve_rec)
+        # the main prefill's calls: causal over the prompt in every attn
+        # and moe layer, non-causal over the vision tokens in every cross
+        want = [(k != "cross", cfg.num_vision_tokens if k == "cross"
+                 else PROMPT) for k in kinds]
+        got = calls[-len(want):]
+        check(got == want, f"{arch}: attention calls {got}")
+        rec["attention_launches"] = {
+            "causal": sum(c for c, _ in got),
+            "non_causal": sum(not c for c, _ in got),
+            "non_causal_skv": sorted({n for c, n in got if not c})}
+        if "moe" in kinds:
+            rec["moe_drop_frac_by_layer"] = [
+                float(m["moe_drop_frac"]) for m, k in zip(metrics, kinds)
+                if k == "moe"]
+        del out
+        short = torch.randint(0, cfg.vocab_size,
+                              (SERVE_BATCH, MOE_CHECK_PROMPT),
+                              generator=gen, device=device)
+        rec.update(short_request_checks(run, params, short, DECODE_REL_L2,
+                                        image))
+        launches[arch] = rec["launches_per_prefill"]
+        emit(moe_vision_serve=rec)
+        del params, image, prompts, short
+        torch.cuda.empty_cache()
+    return launches
+
+
+def ep_layer(cfg, device, seed):
+    """One MoE layer of ``cfg`` at full width in bfloat16 (its shared
+    expert's gate drawn too) and tokens [2, 4096, d], drawn from ``seed``
+    on ``device``: the same in every process that asks the same card."""
+    from repro_torch.models import common, ffn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = common.init_tree(
+        ffn.moe_specs(cfg.d_model, cfg.moe_d_ff, cfg.num_experts_padded,
+                      cfg.num_shared_experts), gen, torch.bfloat16, device)
+    tree["shared_gate"].normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    x = torch.randn(SERVE_BATCH, PROMPT, cfg.d_model, generator=gen,
+                    device=device, dtype=torch.bfloat16)
+    return tree, x
+
+
+def _p11_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase11_ep_rank(mesh, p):
+    """(d) on one rank: ``moe_ep`` over a ``("model",)`` mesh of every
+    rank, with the rank's experts, at ``EP_NO_DROP_CF`` (after a warm-up
+    call) and at the config's capacity factor."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import load_config
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.models import moe_ep
+
+    cfg = load_config(p["arch"]).model
+    device = torch.device(p["device"])
+    tree, x = ep_layer(cfg, device, p["seed"])
+    m = make_model_mesh(dist.get_world_size(), backend=p["backend"],
+                        device=p["device"])
+    local = moe_ep.local_experts(tree, m)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, mesh=m)
+    out = {"rank": dist.get_rank()}
+    with torch.inference_mode():
+        moe_ep.moe_ep(local, x, capacity_factor=EP_NO_DROP_CF, **kw)
+        for name, cf in (("no_drop", EP_NO_DROP_CF),
+                         ("config", cfg.capacity_factor)):
+            collectives.barrier(m.get_group("model"))
+            _p11_sync(device)
+            collectives.all_to_all_calls = 0
+            t0 = time.perf_counter()
+            y, met = moe_ep.moe_ep(local, x, capacity_factor=cf, **kw)
+            _p11_sync(device)
+            out[name] = {"s": time.perf_counter() - t0,
+                         "all_to_all": collectives.all_to_all_calls,
+                         **{k: float(v) for k, v in met.items()}}
+            if name == "no_drop" and out["rank"] == 0:
+                out["y"] = y.cpu()
+    return out
+
+
+def grid_moe_layer(cfg, device, seed, dtype):
+    """One MoE layer of ``cfg`` at full width in ``dtype`` (seeded experts,
+    shared expert and its gate) and tokens [2, 4096, d] whose router
+    inputs lie on a grid of quarters in [-1, 1] and router weights on a
+    grid of 64ths in [-1/16, 1/16]: every product is a multiple of 2^-8
+    and every sum stays under 2^7, so the router's float32 logits are
+    exact on the card and on the CPU alike, in any summation order.  Both
+    then choose the same experts (ties, which the grid makes common,
+    broken toward the lower index on both), and any difference in the keep
+    set is the dispatch's."""
+    from repro_torch.models import common, ffn
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = common.init_tree(
+        ffn.moe_specs(cfg.d_model, cfg.moe_d_ff, cfg.num_experts_padded,
+                      cfg.num_shared_experts), gen, dtype, device)
+    tree["shared_gate"].normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    tree["router"].copy_(torch.randint(-4, 5, tree["router"].shape,
+                                       generator=gen, device=device) / 64)
+    x = torch.randint(-4, 5, (SERVE_BATCH, PROMPT, cfg.d_model),
+                      generator=gen, device=device).to(dtype) / 4
+    return tree, x
+
+
+def phase_moe_drops(device):
+    """Phase 11 (e): the dense ``ffn.moe`` of a full-width Qwen2-MoE layer
+    on 2 x 4096 tokens with drops forced (``deterministic_capacity``), the
+    card against the CPU on the same weights and tokens
+    (``grid_moe_layer``): the same expert ids, the same sorted order,
+    the same keep set and drop fraction, and outputs within phase 4's
+    limits (float32: 2e-4 of |want| + 2e-4; bfloat16: 2^-6 of |want| +
+    2^-7 of the row's largest)."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import ffn
+
+    cfg = load_config(MOE_VISION[0][0]).model
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k)
+    cpu = torch.device("cpu")
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tree, x = grid_moe_layer(cfg, device, 13, dtype)
+        tree_c = {k: ({n: w.cpu() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in tree.items()}
+        x_c = x.cpu()
+        with torch.inference_mode():
+            picks = []
+            for t, xx in ((tree, x), (tree_c, x_c)):
+                _, eid, _, _ = ffn.route(xx.reshape(-1, cfg.d_model),
+                                         t["router"], **kw)
+                picks.append(eid)
+            check(torch.equal(picks[0].cpu(), picks[1]),
+                  f"moe drops ({dtype}): the card's experts differ")
+            for cap in [c for c, d in MOE_DROP_CASES if d == dtype]:
+                slots = [ffn.sort_slots(e, cap) for e in picks]
+                check(all(torch.equal(a.cpu(), b) for a, b in
+                          zip(slots[0], slots[1])),
+                      f"moe drops ({dtype}, cap {cap}): the card's order, "
+                      f"slots or keep set differ")
+                t0 = time.perf_counter()
+                got, gm = ffn.moe(tree, x, deterministic_capacity=cap, **kw)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                want, wm = ffn.moe(tree_c, x_c, deterministic_capacity=cap,
+                                   **kw)
+                cpu_s = time.perf_counter() - t0
+                drop = float(gm["moe_drop_frac"])
+                check(drop == float(wm["moe_drop_frac"]) and drop > 0,
+                      f"moe drops ({dtype}, cap {cap}): drop fraction "
+                      f"{drop} on the card, {float(wm['moe_drop_frac'])} "
+                      f"on the CPU")
+                ratio = float(((got.cpu().float() - want.float()).abs()
+                               / attention_limit(want)).max())
+                check(ratio <= 1.0 and bool(torch.isfinite(got).all()),
+                      f"moe drops ({dtype}, cap {cap}): card vs CPU at "
+                      f"{ratio} of the limit")
+                recs.append({"dtype": str(dtype).split(".")[-1],
+                             "capacity": cap, "moe_drop_frac": drop,
+                             "max_err_over_limit": ratio,
+                             "max_abs_err": max_abs_err(got.float(),
+                                                        want.float()),
+                             "card_s": card_s, "cpu_s": cpu_s})
+        del tree, tree_c, x, x_c
+        torch.cuda.empty_cache()
+    emit(moe_drops={"arch": cfg.name, "card": card_name_and_limit(),
+                    "tokens": [SERVE_BATCH, PROMPT, cfg.d_model],
+                    "experts": [cfg.num_experts, cfg.num_experts_padded],
+                    "top_k": cfg.top_k, "cases": recs})
+
+
+def phase_moe_ep(device):
+    """Phase 11 (d): ``moe_ep`` as ``EP_RANKS`` gloo ranks on the card (16
+    of Qwen2-MoE's 64 experts a rank) and on a 1-rank NCCL mesh, against
+    the dense ``ffn.moe`` on the card on the same layer and tokens."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.models import ffn
+
+    arch = MOE_VISION[0][0]
+    cfg = load_config(arch).model
+    tree, x = ep_layer(cfg, device, 12)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k)
+    dense = {}
+    with torch.inference_mode():
+        ffn.moe(tree, x, capacity_factor=EP_NO_DROP_CF, **kw)
+        for name, cf in (("no_drop", EP_NO_DROP_CF),
+                         ("config", cfg.capacity_factor)):
+            _p11_sync(device)
+            t0 = time.perf_counter()
+            y, met = ffn.moe(tree, x, capacity_factor=cf, **kw)
+            _p11_sync(device)
+            dense[name] = {"s": time.perf_counter() - t0,
+                           **{k: float(v) for k, v in met.items()}}
+            if name == "no_drop":
+                want = y
+    del tree
+    dev = str(device) if device.type != "cuda" \
+        else f"cuda:{device.index or 0}"
+    card = card_name_and_limit()
+    p = {"arch": arch, "seed": 12, "device": dev}
+    runs = {}
+    for ranks, backend in ((EP_RANKS, "gloo"),
+                           (1, "nccl" if device.type == "cuda" else "gloo")):
+        t_spawn = time.time()
+        out = run_ranks(phase11_ep_rank, ranks, {**p, "backend": backend},
+                        backend=backend, device=dev, timeout_s=EP_TIMEOUT_S)
+        spawn_s = time.time() - t_spawn
+        y = out[0]["y"].to(device)
+        ratio = float(((y.float() - want.float()).abs()
+                       / attention_limit(want)).max())
+        calls = [r[c]["all_to_all"] for r in out
+                 for c in ("no_drop", "config")]
+        key = f"{ranks}_{backend}"
+        check(calls == [2] * (2 * ranks),
+              f"moe_ep {key}: all-to-alls a call per rank {calls}")
+        check(ratio <= 1.0 and bool(torch.isfinite(y).all()),
+              f"moe_ep {key} != dense moe: {ratio} of the bf16 limit")
+        check(out[0]["no_drop"]["moe_drop_frac"] == 0.0
+              == dense["no_drop"]["moe_drop_frac"],
+              f"moe_ep {key}: drops at capacity factor {EP_NO_DROP_CF}")
+        runs[key] = {
+            "ranks": ranks, "backend": backend, "spawn_s": spawn_s,
+            "max_err_over_bf16_limit": ratio,
+            "max_abs_err": max_abs_err(y.float(), want.float()),
+            "all_to_all_per_call": calls,
+            **{c: {"s_by_rank": [r[c]["s"] for r in out],
+                   **{k: out[0][c][k] for k in
+                      ("moe_drop_frac", "moe_aux_loss", "moe_z_loss")}}
+               for c in ("no_drop", "config")}}
+        del y
+    emit(moe_ep={"arch": arch, "card": card, "device": dev,
+                 "tokens": list(x.shape), "experts": cfg.num_experts_padded,
+                 "experts_per_rank": cfg.num_experts_padded // EP_RANKS,
+                 "capacity_factors": [EP_NO_DROP_CF, cfg.capacity_factor],
+                 "dense": dense, **runs})
+    return runs
 
 
 # ------------------------------------------------ phase 9: sharded engine
@@ -2353,7 +2867,8 @@ def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
 
 
 def new_path_launches(family_launches, kernel) -> dict:
-    """Phase 10's launch counts of ``kernel``, by model, where it ran."""
+    """Phase 10's and 11's launch counts of ``kernel``, by model, where it
+    ran."""
     return {arch: n[kernel] for arch, n in family_launches.items()
             if n[kernel]}
 
@@ -2396,6 +2911,11 @@ def main() -> int:
     t0 = time.perf_counter()
     family_launches = phase_families(device)
     emit(families_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    family_launches.update(phase_moe_vision(device))
+    phase_moe_ep(device)
+    phase_moe_drops(device)
+    emit(moe_vision_phase_s=time.perf_counter() - t0)
     backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
     dense_backends = sdpa_dense_backends(device)
     emit(sdpa_backends=backends, sdpa_dense_backends=dense_backends)
@@ -2454,7 +2974,7 @@ def main() -> int:
             families={arch: {**serving_times["flash_attention"][arch],
                              "library_backend": dense_backends[arch][
                                  "default"]}
-                      for arch in DENSE_ATTN})])
+                      for arch, *_ in model_attention_shapes()})])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

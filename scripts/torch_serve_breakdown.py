@@ -50,8 +50,9 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profiled(fn, repeats: int):
-    """Wall ms per call, synchronised, and the profiler's device view."""
+def profiled(fn, repeats: int, classify=kernel_class):
+    """Wall ms per call, synchronised, and the profiler's device view
+    (device busy time by ``classify(kernel name)``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -74,7 +75,7 @@ def profiled(fn, repeats: int):
         return dict(out, profile=None)
     busy = {}
     for e in kernels:
-        cls = kernel_class(e.name)
+        cls = classify(e.name)
         busy[cls] = busy.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3
     total = sum(busy.values())
     return dict(out, profile={

@@ -1,13 +1,12 @@
 """Architecture / run configuration schema and registry (PyTorch port).
 
 A copy of ``repro.configs.base`` (plain Python, copied so that the port
-imports nothing of ``repro``), cut to what the serving path of the dense,
-SSM, audio and hybrid families reads: ``ModelConfig`` keeps the JAX names
-and defaults of those fields, and ``RunConfig`` holds the model alone (the
-training settings come back with the training code).  The registry lists
-the architectures the port serves, in the JAX package's order; the MoE
-and vision architectures of the JAX package are not ported yet and
-``load_config`` refuses them.
+imports nothing of ``repro``), cut to what the serving path of every
+family reads: ``ModelConfig`` keeps the JAX names and defaults of those
+fields (the JAX package's ``q_chunk`` / ``kv_chunk`` tile its jnp
+attention and have no use here), and ``RunConfig`` holds the model alone
+(the training settings come back with the training code).  The registry
+lists the JAX package's ten architectures in its order.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm | hybrid | audio
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -36,7 +35,15 @@ class ModelConfig:
     norm_eps: float = 1e-6
     attn_window: int = 0           # 0 = global attention
     attn_softcap: float = 0.0
+    # MoE
+    num_experts: int = 0
+    num_experts_padded: int = 0    # >= num_experts, divisible by the EP size
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
     first_dense_layers: int = 0    # the layer plan's prefix of attn layers
+    capacity_factor: float = 1.25
+    moe_impl: str = "spmd"         # spmd (dense ffn.moe) | ep_a2a (moe_ep)
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -48,11 +55,25 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     rglru_conv_width: int = 4
     rglru_expand: int = 1          # lru width = expand * d_model (RG uses 1)
+    # vlm
+    cross_attn_every: int = 0      # a cross-attn layer every k layers
+    num_vision_tokens: int = 0
     # audio / frame-input
     input_mode: str = "tokens"     # tokens | frames
     frame_dim: int = 0
     scale_embeddings: bool = False # gemma-style sqrt(d_model) embed scaling
     mlp_gated: bool = True         # SwiGLU (True) vs GELU MLP (False)
+
+    def validate(self):
+        """The JAX ``validate``'s checks, raising ``ValueError``."""
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"{self.name}: {self.num_heads} heads are not "
+                             f"a multiple of {self.num_kv_heads} KV heads")
+        if self.family == "moe" and not (
+                self.num_experts > 0 and self.top_k > 0
+                and self.num_experts_padded >= self.num_experts):
+            raise ValueError(f"{self.name}: a MoE needs experts, top_k > 0 "
+                             f"and num_experts_padded >= num_experts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +83,7 @@ class RunConfig:
 
 ARCH_IDS = [
     "mamba2-2.7b", "command-r-plus-104b", "yi-9b", "smollm-360m", "qwen3-4b",
+    "kimi-k2-1t-a32b", "qwen2-moe-a2.7b", "llama-3.2-vision-90b",
     "recurrentgemma-2b", "hubert-xlarge",
 ]
 DEFAULT_ARCH = "recurrentgemma-2b"
@@ -69,8 +91,8 @@ DEFAULT_ARCH = "recurrentgemma-2b"
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
-        raise ValueError(f"repro_torch serves only {ARCH_IDS}; {arch_id!r} "
-                         f"is not ported yet")
+        raise ValueError(f"unknown architecture {arch_id!r}; repro_torch "
+                         f"serves {ARCH_IDS}")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
 

@@ -1,4 +1,5 @@
-"""The sharded feature engine's collectives (PyTorch).
+"""The collectives of the sharded feature engine and of the
+expert-parallel MoE (PyTorch).
 
 The JAX engine runs its shards inside one ``shard_map`` program, and XLA
 inserts the few collectives the mesh half needs; here each shard is a
@@ -13,6 +14,10 @@ tensors on the rank's device.  ``comm_device`` picks by
 
 Every gather *places* values by owner or column; nothing is summed except
 the write count, so floats (−0.0 included) cross the mesh bit for bit.
+
+``all_to_all``, ``gather_cat`` and ``mean_over`` serve ``models/moe_ep.py``
+(the JAX ``lax.all_to_all``, the gather of ``shard_map``'s output and
+``lax.pmean``); ``all_to_all_calls`` counts the all-to-alls.
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ from repro_torch.core.types import StepInfo
 
 __all__ = ["comm_device", "write_count", "gather_blocks",
            "stream_order_info", "place_owned", "gather_rows",
-           "scatter_rows", "broadcast_object", "barrier"]
+           "scatter_rows", "broadcast_object", "barrier", "all_to_all",
+           "gather_cat", "mean_over"]
+
+all_to_all_calls = 0    # all_to_all calls since the last reset
 
 
 def comm_device(group, like: torch.device) -> torch.device:
@@ -156,3 +164,36 @@ def barrier(group) -> None:
                      device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier(group=group)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [n, ...] over a group of n ranks: block j goes to group rank
+    j, and block i of the result came from group rank i (the JAX
+    ``lax.all_to_all`` with split and concat axis 0)."""
+    global all_to_all_calls
+    xs = _send(x, group)
+    if xs.shape[0] != dist.get_world_size(group):
+        raise ValueError(f"all_to_all: {xs.shape[0]} blocks over "
+                         f"{dist.get_world_size(group)} ranks")
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    all_to_all_calls += 1
+    return _recv(out, x)
+
+
+def gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group rank order,
+    on every rank."""
+    return _recv(torch.cat(_all_gather(x, group), dim=dim), x)
+
+
+def mean_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` averaged over the ranks of the product of ``groups`` (summed
+    over each group in turn: the JAX ``lax.pmean`` over several axes)."""
+    xs = _send(x, groups[0]).clone()
+    n = 1
+    for g in groups:
+        xs = _send(xs, g)
+        dist.all_reduce(xs, op=dist.ReduceOp.SUM, group=g)
+        n *= dist.get_world_size(g)
+    return _recv(xs, x) / n

@@ -1,11 +1,14 @@
-"""The sharded feature engine's data mesh (PyTorch).
+"""Process meshes (PyTorch): the sharded feature engine's data mesh and
+the model mesh of the expert-parallel MoE.
 
-The counterpart of ``repro.launch.mesh`` for the engine's 1-D data mesh
-only (the LM meshes of that module are not ported): ``make_shard_mesh``
-is what ``jax.make_mesh((n,), ("data",))`` is to the JAX engine.  Each
-process is one shard — a rank of a ``torch.distributed`` process group —
-and the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the
-group's ranks whose one dim is named ``"data"``.
+The counterpart of ``repro.launch.mesh`` for two of its meshes:
+``make_shard_mesh`` is what ``jax.make_mesh((n,), ("data",))`` is to the
+JAX engine, and ``make_model_mesh`` what ``jax.make_mesh((data, model),
+("data", "model"))`` is to the JAX ``moe_ep`` (the dry-run's LM meshes and
+their sharding rules are not ported).  Each process is one device of the
+mesh — a rank of a ``torch.distributed`` process group — and the mesh is
+a ``torch.distributed.device_mesh.DeviceMesh`` over the group's ranks with
+the JAX dim names.
 
 The group is built *before* the mesh, with the backend the caller means:
 ``DeviceMesh`` would otherwise pick NCCL for CUDA, which refuses two ranks
@@ -22,9 +25,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["make_shard_mesh", "shard_of_mesh", "DATA_AXIS"]
+__all__ = ["make_shard_mesh", "make_model_mesh", "shard_of_mesh",
+           "DATA_AXIS", "MODEL_AXIS"]
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -41,41 +46,15 @@ def _rank_device(device, local_rank: int) -> torch.device:
             return device
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "make_shard_mesh pins each rank to a CUDA device and none is "
+            "a mesh pins each rank to a CUDA device and none is "
             "available; pass device='cpu' to run the ranks on the CPU")
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
-def make_shard_mesh(n: Optional[int] = None, *, backend: Optional[str] =
-                    None, device=None, init_method: Optional[str] = None,
-                    timeout_s: float = 60.0) -> DeviceMesh:
-    """A 1-D ``DeviceMesh`` named ``("data",)`` over ``n`` ranks, one
-    shard each; this process is rank ``RANK``.
-
-    ``n``: the world size; read from torchrun's ``WORLD_SIZE`` when not
-    given (``RANK`` and ``LOCAL_RANK`` come from the environment too,
-    default 0).  A 1-rank mesh needs no environment at all.
-
-    ``device``: the rank's device, pinned with ``torch.cuda.set_device``;
-    default ``cuda:{LOCAL_RANK % device_count}``.  ``device="cpu"`` runs
-    the rank on the CPU.
-
-    ``backend``: ``"nccl"`` for CUDA and ``"gloo"`` for the CPU unless
-    named.  NCCL refuses two ranks on one card, so more local ranks than
-    cards need ``backend="gloo"`` (checked here, before any collective).
-
-    ``init_method``: the rendezvous (default ``env://``: ``MASTER_ADDR``
-    and ``MASTER_PORT``; a 1-rank group without them uses an in-process
-    store).  The group times out after ``timeout_s``, so a dead rank fails
-    its peers' collectives instead of hanging them.
-
-    When the default process group already exists (a caller built it),
-    the mesh is made over it and ``n``/``backend``/``init_method`` must
-    agree with it.
-    """
-    world = int(n) if n is not None else _env_int("WORLD_SIZE")
-    if world is None:
-        raise ValueError("make_shard_mesh needs n or torchrun's WORLD_SIZE")
+def _init_group(world: int, backend, device, init_method,
+                timeout_s: float) -> torch.device:
+    """Build (or check) the default process group of ``world`` ranks with
+    this process as rank ``RANK``, pin the rank's device and return it."""
     rank = _env_int("RANK") or 0
     local_rank = _env_int("LOCAL_RANK")
     local_rank = rank if local_rank is None else local_rank
@@ -112,8 +91,68 @@ def make_shard_mesh(n: Optional[int] = None, *, backend: Optional[str] =
         else:
             kw["init_method"] = init_method or "env://"
         dist.init_process_group(**kw)
+    return dev
+
+
+def make_shard_mesh(n: Optional[int] = None, *, backend: Optional[str] =
+                    None, device=None, init_method: Optional[str] = None,
+                    timeout_s: float = 60.0) -> DeviceMesh:
+    """A 1-D ``DeviceMesh`` named ``("data",)`` over ``n`` ranks, one
+    shard each; this process is rank ``RANK``.
+
+    ``n``: the world size; read from torchrun's ``WORLD_SIZE`` when not
+    given (``RANK`` and ``LOCAL_RANK`` come from the environment too,
+    default 0).  A 1-rank mesh needs no environment at all.
+
+    ``device``: the rank's device, pinned with ``torch.cuda.set_device``;
+    default ``cuda:{LOCAL_RANK % device_count}``.  ``device="cpu"`` runs
+    the rank on the CPU.
+
+    ``backend``: ``"nccl"`` for CUDA and ``"gloo"`` for the CPU unless
+    named.  NCCL refuses two ranks on one card, so more local ranks than
+    cards need ``backend="gloo"`` (checked here, before any collective).
+
+    ``init_method``: the rendezvous (default ``env://``: ``MASTER_ADDR``
+    and ``MASTER_PORT``; a 1-rank group without them uses an in-process
+    store).  The group times out after ``timeout_s``, so a dead rank fails
+    its peers' collectives instead of hanging them.
+
+    When the default process group already exists (a caller built it),
+    the mesh is made over it and ``n``/``backend``/``init_method`` must
+    agree with it.
+    """
+    world = int(n) if n is not None else _env_int("WORLD_SIZE")
+    if world is None:
+        raise ValueError("make_shard_mesh needs n or torchrun's WORLD_SIZE")
+    dev = _init_group(world, backend, device, init_method, timeout_s)
     return DeviceMesh(dev.type, torch.arange(world),
                       mesh_dim_names=(DATA_AXIS,))
+
+
+def make_model_mesh(model: Optional[int] = None, data: int = 1, *,
+                    backend: Optional[str] = None, device=None,
+                    init_method: Optional[str] = None,
+                    timeout_s: float = 60.0) -> DeviceMesh:
+    """The mesh of the expert-parallel MoE over ``data * model`` ranks: 1-D
+    ``("model",)`` when ``data == 1``, else 2-D ``("data", "model")`` with
+    rank ``d * model + m`` at coordinates (d, m), as ``jax.make_mesh``
+    lays devices out.  ``model`` defaults to ``WORLD_SIZE // data``; the
+    group, the rank's device and the rest of the arguments are as
+    ``make_shard_mesh``'s (an existing default group is reused when it
+    agrees)."""
+    if model is None:
+        world = _env_int("WORLD_SIZE")
+        if world is None or world % data:
+            raise ValueError(f"make_model_mesh needs model, or a "
+                             f"WORLD_SIZE that {data} data rows divide")
+        model = world // data
+    world = int(model) * int(data)
+    dev = _init_group(world, backend, device, init_method, timeout_s)
+    if data == 1:
+        return DeviceMesh(dev.type, torch.arange(world),
+                          mesh_dim_names=(MODEL_AXIS,))
+    return DeviceMesh(dev.type, torch.arange(world).reshape(data, model),
+                      mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
 def shard_of_mesh(mesh, data_axes: Tuple[str, ...] = (DATA_AXIS,)

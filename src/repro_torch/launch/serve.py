@@ -4,11 +4,14 @@
 The counterpart of ``repro.launch.serve``.  It runs on ``cuda:0`` unless
 ``--device cpu`` is given.
 
-* ``llm`` — prefill + decode for the architectures the port serves
-  (``ARCH_IDS``: dense, SSM, audio and hybrid), at the full configuration
+* ``llm`` — prefill + decode for every architecture of ``ARCH_IDS``
+  (dense, MoE, SSM, hybrid, vision, audio), at the full configuration
   unless ``--smoke`` is given, with random weights drawn from ``--seed``.
   An encoder-only architecture (hubert) encodes ``--batch`` x
-  ``--prompt-len`` random frames instead.
+  ``--prompt-len`` random frames instead; the vision family's prompts come
+  with ``image_embeds`` [batch, num_vision_tokens, d_model] drawn from the
+  seed, as the JAX CLI draws them.  At full depth Kimi-K2 (2.06 TB) and
+  Llama-3.2-Vision (175 GB) fit no one card.
 * ``scoring`` — the online feature-scoring tier (``serving/frontend.py``
   via ``ScoringPipeline.serve``): open-loop Poisson request admission at
   ``--load`` events/s (0: all at once), dynamic batching with a
@@ -87,9 +90,14 @@ def _serve_llm(args) -> None:
     for b in range(n_batches):
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+        image_embeds = None
+        if cfg.family == "vlm":
+            image_embeds = torch.from_numpy(rng.normal(
+                size=(args.batch, cfg.num_vision_tokens, cfg.d_model))).to(
+                    device, dtype)
         _sync(device)
         t0 = time.perf_counter()
-        logits, state = prefill(params, prompts)
+        logits, state = prefill(params, prompts, image_embeds)
         tok = sample_token(logits, sampler, temperature=args.temperature,
                            vocab_size=cfg.vocab_size)
         _sync(device)

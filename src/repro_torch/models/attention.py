@@ -1,14 +1,16 @@
-"""GQA self-attention (PyTorch): the flash prefill, and the decode over a
-full-length cache or the ring buffer of local attention.
+"""GQA attention (PyTorch): the flash prefill of self- and cross-attention,
+and the one-token decode over a full-length cache, the ring buffer of
+local attention or the static memory of cross-attention.
 
-The counterpart of ``repro.models.attention``'s self-attention, with its
-optional biases, qk-norm and (for the encoder) no RoPE; cross-attention is
-not ported.  The prefill runs ``ops.flash_attention`` (the hand-written
-CUDA kernel on the card) where the JAX package runs ``chunked_attention``:
-global causal for the dense family, local for the hybrid one, non-causal
-for the encoder.  The one-token decode attends over the whole cache in
-plain torch, as ``chunked_attention`` does for a single query block in the
-reference.
+The counterpart of ``repro.models.attention``, with its optional biases,
+qk-norm and (for the encoder and cross-attention) no RoPE.  The prefill
+runs ``ops.flash_attention`` (the hand-written CUDA kernel on the card)
+where the JAX package runs ``chunked_attention``: global causal for the
+dense and MoE families, local for the hybrid one, non-causal for the
+encoder and for cross-attention over the vision memory (Sq queries over
+Skv = ``num_vision_tokens`` keys).  The one-token decode attends over the
+whole cache in plain torch, as ``chunked_attention`` does for a single
+query block in the reference.
 """
 from __future__ import annotations
 
@@ -56,18 +58,32 @@ class KVCache(NamedTuple):
                        torch.zeros(shp, dtype=dtype, device=device))
 
 
-def _project_qkv(p, x, qk_norm, norm_eps):
+def _project_q(p, x, qk_norm, norm_eps):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
     if qk_norm:
         q = common.rms_norm(q, p["q_norm"], norm_eps)
+    return q
+
+
+def cross_kv(p, kv_src, *, qk_norm=False, norm_eps=1e-6):
+    """Project the memory (the vision tokens) [B, Nv, D_model] to K/V
+    [B, Nv, Kh, D] once; the decode reuses them.  Also the K/V of
+    self-attention, where the memory is the input itself."""
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(kv_src.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(kv_src.dtype))
+    if "bk" in p:
+        k = k + p["bk"].to(kv_src.dtype)
+        v = v + p["bv"].to(kv_src.dtype)
+    if qk_norm:
         k = common.rms_norm(k, p["k_norm"], norm_eps)
-    return q, k, v
+    return k, v
+
+
+def _project_qkv(p, x, qk_norm, norm_eps):
+    k, v = cross_kv(p, x, qk_norm=qk_norm, norm_eps=norm_eps)
+    return _project_q(p, x, qk_norm, norm_eps), k, v
 
 
 def _project_out(p, out, x):
@@ -132,21 +148,43 @@ def decode_self_attention(p, x, cache: KVCache, pos: int, *, rope_theta,
         k_valid = _ring_valid(pos, S_max, window, x.device)
     else:
         k_valid = torch.arange(S_max, device=x.device) <= pos
-    # grouped GQA form, one block: float32 scores and weights, as the
-    # reference's _attend_block
+    out = _attend_one(q, cache.k, cache.v, k_valid, softcap)
+    return _project_out(p, out, x), cache
+
+
+def _attend_one(q, k, v, k_valid, softcap=0.0):
+    """One query token over keys [B, S, Kh, D] (``k_valid`` [S] or None:
+    all), in the grouped GQA form as one block: float32 scores and
+    weights, as the reference's ``_attend_block``.  -> [B, 1, H, D]."""
     B, _, H, D = q.shape
-    Kh = cache.k.shape[2]
+    Kh = k.shape[2]
     qg = q.reshape(B, 1, Kh, H // Kh, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                     cache.k.float()) * (D ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (D ** -0.5)
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
-    s = torch.where(k_valid, s, NEG_INF)
+    if k_valid is not None:
+        s = torch.where(k_valid, s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = torch.sum(e, dim=-1)                                   # [B,Kh,G,1]
-    o = torch.einsum("bkgqs,bskd->bqkgd", e.to(cache.v.dtype).float(),
-                     cache.v.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", e.to(v.dtype).float(), v.float())
     o = o / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
-    out = o.reshape(B, 1, H, D).to(q.dtype)
-    return _project_out(p, out, x), cache
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def cross_attention(p, x, kv, *, qk_norm=False, norm_eps=1e-6):
+    """Prefill cross-attention of x [B, Sq, D_model] over precomputed
+    memory K/V (``cross_kv``: [B, Nv, Kh, D]): non-causal, no RoPE."""
+    k, v = kv
+    q = _project_q(p, x, qk_norm, norm_eps)
+    out = ops.flash_attention(_heads_first(q), _heads_first(k),
+                              _heads_first(v), causal=False).transpose(1, 2)
+    return _project_out(p, out, x)
+
+
+def decode_cross_attention(p, x, kv, *, qk_norm=False, norm_eps=1e-6):
+    """Single-token cross-attention: x [B, 1, D_model] over the static
+    memory K/V, which the decode never changes."""
+    k, v = kv
+    q = _project_q(p, x, qk_norm, norm_eps)
+    return _project_out(p, _attend_one(q, k, v, None), x)

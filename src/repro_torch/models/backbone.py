@@ -1,18 +1,21 @@
 """Multi-family model backbone with prefill / decode / encode APIs
 (PyTorch).
 
-The counterpart of ``repro.models.backbone`` for the dense, SSM, audio and
-hybrid families.  A model is a *layer plan*
+The counterpart of ``repro.models.backbone``.  A model is a *layer plan*
 
     prefix kinds  +  (pattern kinds) x n_groups  +  suffix kinds
 
 with kinds ``attn`` (pre-norm GQA self-attention, + MLP when d_ff > 0),
-``ssd`` (Mamba-2 SSD block: norm + ssd, no MLP) and ``rec`` (RG-LRU block
-+ MLP).  The kinds ``moe`` and ``cross`` (the MoE and vision families) are
-not ported yet.  Where the JAX package scans stacked group parameters, the
-port keeps the layers as one Python list in execution order (the prefix,
-then group by group, pattern position by pattern position, then the
-suffix), and the decode state as one cache entry per layer.
+``moe`` (pre-norm GQA self-attention + mixture of experts: ``ffn.moe``, or
+``moe_ep.moe_ep`` when ``moe_impl == "ep_a2a"``), ``ssd`` (Mamba-2 SSD
+block: norm + ssd, no MLP), ``rec`` (RG-LRU block + MLP) and ``cross``
+(tanh-gated cross-attention over the vision memory ``image_embeds`` +
+tanh-gated MLP).  Where the JAX package scans stacked group parameters,
+the port keeps the layers as one Python list in execution order (the
+prefix, then group by group, pattern position by pattern position, then
+the suffix), and the decode state as one cache entry per layer.  Like the
+reference, the decode runs the dense ``ffn.moe`` whatever ``moe_impl``
+says (a decode step's few tokens do not divide over ranks).
 """
 from __future__ import annotations
 
@@ -22,11 +25,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, common, ffn, mamba2, rglru
+from repro_torch.models import attention, common, ffn, mamba2, moe_ep, rglru
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, Spec
 
 VOCAB_ALIGN = 128  # the reference pads the vocab to a multiple of this
+KINDS = ("attn", "moe", "ssd", "rec", "cross")
+ZERO_METRICS = {"moe_aux_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_frac": 0.0}
 
 
 def padded_vocab(cfg) -> int:
@@ -35,10 +40,6 @@ def padded_vocab(cfg) -> int:
 
 
 # ----------------------------------------------------------------- layer plan
-NEXT_SLICE = "moe and cross layers (MoE and vision families) come with the " \
-    "next slice of the port"
-
-
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
     prefix: Tuple[str, ...]
@@ -55,14 +56,18 @@ class LayerPlan:
 def layer_plan(cfg) -> LayerPlan:
     if cfg.family == "ssm":
         pattern: Tuple[str, ...] = ("ssd",)
+    elif cfg.family == "moe":
+        pattern = ("moe",)
     elif cfg.family == "hybrid":
         pattern = tuple(cfg.block_pattern) or ("rec", "rec", "attn")
+    elif cfg.family == "vlm":
+        pattern = ("attn",) * (cfg.cross_attn_every - 1) + ("cross",)
     elif cfg.family in ("dense", "audio"):
         pattern = ("attn",)
     else:
-        raise ValueError(f"family {cfg.family!r}: {NEXT_SLICE}")
-    for kind in set(pattern) & {"moe", "cross"}:
-        raise ValueError(f"layer kind {kind!r}: {NEXT_SLICE}")
+        raise ValueError(f"unknown family {cfg.family!r}")
+    for kind in set(pattern) - set(KINDS):
+        raise ValueError(f"unknown layer kind {kind!r}")
     prefix = ("attn",) * cfg.first_dense_layers
     body = cfg.num_layers - len(prefix)
     n_groups = body // len(pattern)
@@ -77,20 +82,30 @@ def _norm_spec(cfg) -> Spec:
 
 def block_specs(kind: str, cfg) -> dict:
     D, F = cfg.d_model, cfg.d_ff
+    attn = attention.attn_specs(D, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim, cfg.use_bias, cfg.qk_norm)
     if kind == "ssd":
         return {"ln": _norm_spec(cfg), "ssd": mamba2.ssd_specs(cfg)}
     if kind == "rec":
         return {"ln1": _norm_spec(cfg), "rglru": rglru.rglru_specs(cfg),
                 "ln2": _norm_spec(cfg), "mlp": ffn.mlp_specs(D, F)}
     if kind == "attn":
-        s = {"ln1": _norm_spec(cfg),
-             "attn": attention.attn_specs(D, cfg.num_heads,
-                                          cfg.num_kv_heads, cfg.head_dim,
-                                          cfg.use_bias, cfg.qk_norm)}
+        s = {"ln1": _norm_spec(cfg), "attn": attn}
         if F > 0:
             s["ln2"] = _norm_spec(cfg)
             s["mlp"] = ffn.mlp_specs(D, F, cfg.use_bias, cfg.mlp_gated)
         return s
+    if kind == "moe":
+        return {"ln1": _norm_spec(cfg), "attn": attn, "ln2": _norm_spec(cfg),
+                "moe": ffn.moe_specs(D, cfg.moe_d_ff, cfg.num_experts_padded,
+                                     cfg.num_shared_experts)}
+    if kind == "cross":
+        # the tanh gates start at 0, as the reference's: the layer then
+        # passes its input through until trained
+        return {"ln1": _norm_spec(cfg), "xattn": attn,
+                "gate_attn": Spec((), "zeros"),
+                "ln2": _norm_spec(cfg), "mlp": ffn.mlp_specs(D, F),
+                "gate_mlp": Spec((), "zeros")}
     raise ValueError(kind)
 
 
@@ -121,6 +136,16 @@ def count_params(cfg) -> int:
     return common.count_params(model_specs(cfg))
 
 
+def active_params(cfg) -> int:
+    """Active parameters per token (MoE routes top_k of num_experts)."""
+    if cfg.family != "moe":
+        return count_params(cfg)
+    n_moe = layer_plan(cfg).kinds.count("moe")
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    return count_params(cfg) - n_moe * per_expert * (cfg.num_experts_padded
+                                                     - cfg.top_k)
+
+
 # ------------------------------------------------------------------ forward
 def _embed(params, cfg, inputs, compute_dtype):
     """Token ids [B, S] or, for frame input, frames [B, S, frame_dim]."""
@@ -146,9 +171,33 @@ def _attn_kwargs(cfg) -> dict:
                 use_rope=cfg.causal)    # the encoder (hubert) skips rope
 
 
-def apply_block(kind: str, p, x, cfg, positions, *,
+def _vision(cfg, image_embeds, compute_dtype):
+    if image_embeds is None:
+        if "cross" in layer_plan(cfg).kinds:
+            raise ValueError(f"{cfg.name}: cross-attention layers need "
+                             f"image_embeds [B, {cfg.num_vision_tokens}, "
+                             f"{cfg.d_model}]")
+        return None
+    return image_embeds.to(compute_dtype)
+
+
+def apply_block(kind: str, p, x, cfg, positions, vision=None, *,
                 collect_cache: bool = False):
-    """One layer forward.  Returns (x, cache_entry_or_None)."""
+    """One layer forward; ``vision`` is the memory of a ``cross`` layer.
+    Returns (x, metrics, cache entry or None): ``metrics`` holds the MoE
+    losses and drop fraction (0.0 for the other kinds)."""
+    metrics = dict(ZERO_METRICS)
+    if kind == "cross":
+        kv = attention.cross_kv(p["xattn"], vision, qk_norm=cfg.qk_norm,
+                                norm_eps=cfg.norm_eps)
+        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        out = attention.cross_attention(p["xattn"], h, kv,
+                                        qk_norm=cfg.qk_norm,
+                                        norm_eps=cfg.norm_eps)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn.mlp(p["mlp"], h)
+        return x, metrics, kv if collect_cache else None
     cache = None
     if kind == "ssd":
         h = common.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -158,7 +207,7 @@ def apply_block(kind: str, p, x, cfg, positions, *,
         if kind == "rec":
             out = rglru.rglru_block(p["rglru"], h, cfg,
                                     return_state=collect_cache)
-        elif kind == "attn":
+        elif kind in ("attn", "moe"):
             out = attention.self_attention(
                 p["attn"], h, positions, causal=cfg.causal,
                 return_kv=collect_cache, **_attn_kwargs(cfg))
@@ -167,19 +216,35 @@ def apply_block(kind: str, p, x, cfg, positions, *,
     if collect_cache:
         out, cache = out
     x = x + out
-    if "mlp" in p:              # rec, and attn when d_ff > 0
+    if kind == "moe":
+        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        moe_fn = moe_ep.moe_ep if cfg.moe_impl == "ep_a2a" else ffn.moe
+        y, m = moe_fn(p["moe"], h, num_experts=cfg.num_experts,
+                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        metrics.update(m)
+        x = x + y
+    elif "mlp" in p:              # rec, and attn when d_ff > 0
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + ffn.mlp(p["mlp"], h)
-    return x, cache
+    return x, metrics, cache
 
 
-def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16):
+def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
+                   image_embeds=None, layer_metrics: Optional[list] = None):
     """Embed + all layers + final norm.  inputs: tokens [B, S] (frames
-    [B, S, frame_dim] for frame input) -> [B, S, D]."""
+    [B, S, frame_dim] for frame input) -> [B, S, D].
+
+    ``image_embeds`` [B, Nv, D] is the memory of the ``cross`` layers
+    (the vision family needs it).  Each layer's metrics (``apply_block``)
+    are appended to ``layer_metrics`` when a list is given; the
+    reference's ``forward_hidden`` returns their sums."""
     x = _embed(params, cfg, inputs, compute_dtype)
+    vision = _vision(cfg, image_embeds, compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
-        x, _ = apply_block(kind, p, x, cfg, positions)
+        x, m, _ = apply_block(kind, p, x, cfg, positions, vision)
+        if layer_metrics is not None:
+            layer_metrics.append(m)
     return common.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -201,7 +266,7 @@ def logits_from_hidden(params, cfg, x) -> torch.Tensor:
 class DecodeState(NamedTuple):
     pos: int             # number of tokens already in context
     layers: tuple        # one cache entry per layer (KVCache / SSMState /
-    #                      RGLRUState)
+    #                      RGLRUState / the cross layers' static (k, v))
 
 
 def _attn_cache_len(cfg, max_len: int) -> int:
@@ -217,9 +282,13 @@ def init_block_cache(kind: str, cfg, batch: int, max_len: int, dtype,
         return mamba2.ssd_init_state(cfg, batch, dtype, device)
     if kind == "rec":
         return rglru.rglru_init_state(cfg, batch, dtype, device)
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return KVCache.zeros(batch, _attn_cache_len(cfg, max_len),
                              cfg.num_kv_heads, cfg.head_dim, dtype, device)
+    if kind == "cross":
+        shp = (batch, cfg.num_vision_tokens, cfg.num_kv_heads, cfg.head_dim)
+        return (torch.zeros(shp, dtype=dtype, device=device),
+                torch.zeros(shp, dtype=dtype, device=device))
     raise ValueError(kind)
 
 
@@ -237,15 +306,27 @@ def decode_block(kind: str, p, cache, x, cfg, pos: int):
         out, cache = mamba2.ssd_decode_step(p["ssd"], h, cache, cfg)
         return x + out, cache
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "cross":     # the memory's K/V stay as the prefill made them
+        out = attention.decode_cross_attention(
+            p["xattn"], h, cache, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn.mlp(p["mlp"], h)
+        return x, cache
     if kind == "rec":
         out, cache = rglru.rglru_decode_step(p["rglru"], h, cache, cfg)
-    elif kind == "attn":
+    elif kind in ("attn", "moe"):
         out, cache = attention.decode_self_attention(
             p["attn"], h, cache, pos, **_attn_kwargs(cfg))
     else:
         raise ValueError(kind)
     x = x + out
-    if "mlp" in p:
+    if kind == "moe":
+        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, _ = ffn.moe(p["moe"], h, num_experts=cfg.num_experts,
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        x = x + y
+    elif "mlp" in p:
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + ffn.mlp(p["mlp"], h)
     return x, cache
@@ -286,17 +367,24 @@ def _fill_kv_cache(cfg, kv, max_len: int, dtype) -> KVCache:
 
 
 def prefill(params, cfg, tokens, *, max_len: Optional[int] = None,
-            compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+            image_embeds=None, layer_metrics: Optional[list] = None):
     """Process the prompt [B, S]; return ([B, Vp] f32 last-position logits,
-    DecodeState)."""
+    DecodeState).  ``image_embeds`` and ``layer_metrics`` as in
+    ``forward_hidden``; a cross layer's cache is its memory K/V in the
+    compute dtype, as the reference keeps it."""
     x = _embed(params, cfg, tokens, compute_dtype)
+    vision = _vision(cfg, image_embeds, compute_dtype)
     S = x.shape[1]
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)
     caches = []
     for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
-        x, c = apply_block(kind, p, x, cfg, positions, collect_cache=True)
-        if kind == "attn":
+        x, m, c = apply_block(kind, p, x, cfg, positions, vision,
+                              collect_cache=True)
+        if layer_metrics is not None:
+            layer_metrics.append(m)
+        if kind in ("attn", "moe"):
             c = _fill_kv_cache(cfg, c, max_len, cache_dtype)
         caches.append(c)
     x = common.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)

@@ -1,8 +1,8 @@
 """Shared model machinery (PyTorch): parameter descriptors and trees,
 norms, rope, the gated activation.
 
-The counterpart of ``repro.models.common``, cut to what the dense, SSM,
-audio and hybrid serving paths use.  A model is declared as a tree of ``Spec``
+The counterpart of ``repro.models.common``, cut to what the serving paths
+use.  A model is declared as a tree of ``Spec``
 descriptors; ``init_tree`` draws each leaf in float32 from one
 ``torch.Generator`` and casts it, and ``Params`` holds the resulting tree
 as an ``nn.Module`` whose leaves keep the JAX package's shapes, so that
@@ -25,6 +25,9 @@ class Spec(NamedTuple):
     init: str = "normal"   # normal | zeros | ones | embed | ssm_a | ssm_dt
     #                        | rglru_a
     fan_in: Optional[int] = None
+
+
+SLAB_ELEMENTS = 1 << 30   # the largest float32 draw of one leaf (4 GiB)
 
 
 def init_param(spec: Spec, gen: torch.Generator, dtype,
@@ -54,7 +57,19 @@ def init_param(spec: Spec, gen: torch.Generator, dtype,
         fan_in = spec.shape[0] if len(spec.shape) >= 2 else spec.shape[-1]
     # GPT-2-style embedding init keeps tied-head logits O(1)
     scale = 0.02 if spec.init == "embed" else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(spec.shape, generator=gen, **f32) * scale).to(dtype)
+    if len(spec.shape) < 2:
+        return (torch.randn(spec.shape, generator=gen, **f32)
+                * scale).to(dtype)
+    # a matrix is drawn slab by slab along its leading axis, so that a large
+    # leaf's float32 draw never stands whole beside the result (Kimi-K2's
+    # expert leaf [384, 7168, 2048] would be 22.5 GB of float32); a leaf of
+    # at most SLAB_ELEMENTS is one slab, the same draw as a whole one
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    rows = max(1, SLAB_ELEMENTS // max(1, math.prod(spec.shape[1:])))
+    for i in range(0, spec.shape[0], rows):
+        part = out[i:i + rows]
+        part.copy_(torch.randn(part.shape, generator=gen, **f32) * scale)
+    return out
 
 
 def _map_tree(fn, tree):

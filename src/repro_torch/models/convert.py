@@ -6,7 +6,11 @@ imports nothing of JAX), and returns the port's ``Params``.  Every leaf
 keeps its JAX shape, so the carry-over is a copy, never a transpose; the
 prefix layers, then the stacked ``groups`` leaves unstacked over their
 leading axis, then the suffix layers make the port's one list of layers,
-in execution order.
+in execution order.  Unstacking gives every leaf its per-layer shape: the
+expert leaves [n_groups, E, D, F] become [E, D, F] and the cross layers'
+scalar gates [n_groups] become 0-d; a pattern of several kinds (the vision
+family's four ``attn`` and one ``cross``) is walked position by position
+within each group.
 """
 from __future__ import annotations
 

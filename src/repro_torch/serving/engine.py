@@ -2,16 +2,23 @@
 
 The counterpart of ``repro.serving.engine``:
 
-  prefill  (params, tokens [B, S])        -> (last logits, DecodeState)
+  prefill  (params, tokens [B, S][, image_embeds [B, Nv, D]][,
+            layer_metrics])               -> (last logits, DecodeState)
   decode   (params, state, tokens [B, 1]) -> (logits [B, Vp], DecodeState)
   encode   (params, frames [B, S, F])     -> logits [B, S, Vp]  (encoder)
 
 An encoder-only architecture (``causal=False``) has no decode step: its
-"prefill" step is the encoder, and a decode step is refused.
+"prefill" step is the encoder, and a decode step is refused.  The vision
+family's prefill takes the precomputed patch embeddings ``image_embeds``
+(the JAX batch's ``"image_embeds"``); its decode reads their K/V from the
+state.  A list passed as ``layer_metrics`` receives each layer's MoE
+metrics (``backbone.prefill``).
 
 ``generate`` drives prefill + greedy/temperature decode.  Greedy decoding
 is the same function as the reference's; sampling at a temperature above
-0 draws from a ``torch.Generator``, whose numbers differ from JAX's.
+0 draws from a ``torch.Generator``, whose numbers differ from JAX's.  The
+reference's ``generate`` gives the vision family no memory, so it fails
+there; the port's refuses the family with a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -34,10 +41,13 @@ def make_serve_step(run: RunConfig, kind: str, *,
                                        compute_dtype=compute_dtype)
             return encode_step
 
-        def prefill_step(params, tokens):
+        def prefill_step(params, tokens, image_embeds=None,
+                         layer_metrics=None):
             return backbone.prefill(params, mcfg, tokens, max_len=max_len,
                                     compute_dtype=compute_dtype,
-                                    cache_dtype=compute_dtype)
+                                    cache_dtype=compute_dtype,
+                                    image_embeds=image_embeds,
+                                    layer_metrics=layer_metrics)
         return prefill_step
 
     if kind == "decode":
@@ -73,6 +83,9 @@ def generate(run: RunConfig, params, prompt_tokens: torch.Tensor, *,
              compute_dtype=torch.float32) -> torch.Tensor:
     """Batched autoregressive generation.  prompt: [B, S] -> [B, S + new]."""
     mcfg = run.model
+    if mcfg.family == "vlm":
+        raise ValueError(f"{mcfg.name}: generate takes no image_embeds; "
+                         f"serve the vision family through make_serve_step")
     B, S = prompt_tokens.shape
     if S == 0:
         raise ValueError("generate requires a non-empty prompt "

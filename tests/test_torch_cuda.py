@@ -654,3 +654,94 @@ def test_family_serve_steps_on_card_match_cpu(cuda_device, arch):
         for w, g in zip(*outs):
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-4,
                                        atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 2, 333, 100, 128),
+                                   (1, 64, 8, 1000, 1600, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_cross_shapes_vs_plain(cuda_device, shape, dtype):
+    """Non-causal cross-attention with Sq != Skv (the vision family's
+    queries over its 1600 vision tokens, and a small ragged case with
+    Sq > Skv) against the plain version on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, H, Kh, Sq, Skv, D = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Skv)
+    q = torch.randn(B, H, Sq, D, generator=gen, device=cuda_device)
+    k, v = (torch.randn(B, Kh, Skv, D, generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
+    launches = fa.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 1
+    assert bool(torch.isfinite(got).all())
+    if dtype == "bfloat16":
+        ratio = _bf16_ratio(got, want)
+        assert ratio <= 1.0, f"error at {ratio} of the limit"
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                                  "llama-3.2-vision-90b"])
+def test_moe_vision_serve_steps_on_card_match_cpu(cuda_device, arch):
+    """The smoke config of each MoE and vision arch in float32, its zero
+    gates drawn (so cross-attention and the shared-expert gate count):
+    prefill and four decode steps on the card, through the kernel, against
+    the CPU with the plain version, same weights; logits within rtol =
+    atol = 5e-4 (float32 sums in another order), one attention launch per
+    attn, moe and cross layer."""
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone
+    from repro_torch.serving.engine import make_serve_step
+
+    run = load_smoke_config(arch)
+    cfg = run.model
+    gen = torch.Generator().manual_seed(5)
+    params = backbone.init_params(cfg, gen, torch.float32, "cpu")
+    with torch.no_grad():
+        for layer in params["layers"]:
+            for name in ("gate_attn", "gate_mlp"):
+                if name in layer:
+                    layer[name].uniform_(0.5, 1.5, generator=gen)
+            if "moe" in layer and "shared_gate" in layer["moe"]:
+                layer["moe"]["shared_gate"].normal_(0.0, 0.2, generator=gen)
+    card = backbone.init_params(cfg, torch.Generator().manual_seed(5),
+                                torch.float32, "cpu")
+    card.load_state_dict(params.state_dict())
+    card = card.to(cuda_device)
+    rng = np.random.default_rng(5)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 32)))
+    steps = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 4)))
+    image = torch.tensor(rng.normal(size=(2, cfg.num_vision_tokens,
+                                          cfg.d_model)),
+                         dtype=torch.float32) \
+        if cfg.family == "vlm" else None
+    kinds = backbone.layer_plan(cfg).kinds
+    outs = []
+    for p, dev in ((params, "cpu"), (card, cuda_device)):
+        prefill = make_serve_step(run, "prefill", compute_dtype=torch.float32,
+                                  max_len=36)
+        decode = make_serve_step(run, "decode", compute_dtype=torch.float32)
+        before = fa.launches
+        with torch.inference_mode():
+            logits, state = prefill(p, prompt.to(dev), None if image is None
+                                    else image.to(dev))
+            got = [logits]
+            for t in range(steps.shape[1]):
+                logits, state = decode(p, state, steps[:, t:t + 1].to(dev))
+                got.append(logits)
+        want_launches = 0 if dev == "cpu" else \
+            sum(kinds.count(k) for k in ("attn", "moe", "cross"))
+        assert fa.launches - before == want_launches
+        outs.append([g.cpu() for g in got])
+    for w, g in zip(*outs):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-4,
+                                   atol=5e-4)

@@ -110,8 +110,8 @@ def test_layer_plan_and_param_count():
     plan = backbone.layer_plan(full)
     assert plan.kinds.count("rec") == 18 and plan.kinds.count("attn") == 8
     assert plan.suffix == ("rec", "rec")
-    with pytest.raises(ValueError, match="not ported"):
-        load_config("qwen2-moe-a2.7b")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        load_config("gpt-2")
 
 
 @pytest.mark.parametrize("loader", ["load_config", "load_smoke_config"])
