@@ -324,6 +324,31 @@ FE_EVENTS, FE_EXACT_EVENTS = PREFIX, 65_536
 FE_LOADS = (0.5, 0.8)                  # of phase 8 (a)'s capacity
 SHARDS, SHARD_BATCH = 4, 1024          # 4 x 1024 = phase 2's 4096
 SHARD_SLOTS, SHARD_TIMEOUT_S = N_SLOTS // 4, 600.0
+# phase 12: the training runs' batch (2 x 4096 tokens); the backward
+# kernels' shapes on their paths (RecurrentGemma's attention at its
+# micro-batch of 1, SmolLM's at batch 2; the scan at RecurrentGemma's
+# micro-batch and Mamba-2's chunk recurrence); the backward grid (phase
+# 4's cases up to 1000 tokens, then the two training shapes) and its
+# normwise limits against a float32 plain backward on the same inputs:
+# float32 sums in another order; bfloat16 rounds P and dS to bfloat16
+# before the products that read them and the outputs to bfloat16 (each
+# ~2^-9 relative, summed over thousands of terms)
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_ATTN = {ARCH: (1, 10, 1, TRAIN_SEQ, 256, 2048),   # (B, H, Kh, S, D, W)
+              "smollm-360m": (TRAIN_BATCH, 15, 5, TRAIN_SEQ, 64, 0)}
+TRAIN_SCANS = {ARCH: (TRAIN_SEQ, 2560), "mamba2-2.7b": SSD_SCAN}
+TRAIN_ATTN_CASES = [c for c in ATTN_CASES if c[3] <= 1000] + \
+    [(B, H, Kh, S, S, D, True, W, 0.0)
+     for B, H, Kh, S, D, W in TRAIN_ATTN.values()]
+TRAIN_ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_BLOCK_CASES = [(ARCH, "rec", "decay_scan"),
+                     (ARCH, "attn", "flash_attention"),
+                     ("mamba2-2.7b", "ssd", "decay_scan")]
+# (label, arch, steps, TrainConfig overrides besides warmup_steps=1)
+TRAIN_RUNS = [("recurrentgemma", ARCH, 4, {}),
+              ("smollm_adamw", "smollm-360m", 4, {}),
+              ("smollm_adafactor", "smollm-360m", 2,
+               {"optimizer": "adafactor", "master_weights": False})]
 
 
 def check(ok: bool, what: str) -> None:
@@ -471,7 +496,8 @@ def build_kernels():
     from repro_torch.kernels import _build, decay_scan, flash_attention
     from repro_torch.kernels import thinning_rmw as trmw
 
-    kernels = (trmw.KERNEL, decay_scan.KERNEL, flash_attention.KERNEL)
+    kernels = (trmw.KERNEL, decay_scan.KERNEL, flash_attention.KERNEL,
+               flash_attention.BWD_KERNEL)
     t0 = time.perf_counter()
     _build.build_all(kernels)
     wall = time.perf_counter() - t0
@@ -2850,6 +2876,362 @@ def phase_sharded(device, stream, exact_ref):
     return {"keyed": keyed, "write_back": write_back}
 
 
+# ------------------------------------------------------------ phase 12
+def attention_bwd_bound(B, H, Kh, Sq, Skv, D, causal, window, itemsize):
+    """(bound_ms, bound_by) of the attention backward: five products of
+    2 D FLOP per unmasked pair and head (S = Q K^T, dP = dO V^T, dV, dK,
+    dQ) at the bf16 tensor-core rate, against q, o, do, k, v and the lse
+    read once and dq, dk, dv written once."""
+    ops = 10 * D * B * H * window_pairs(Sq, Skv, causal, window)
+    nbytes = itemsize * D * (4 * B * H * Sq + 4 * B * Kh * Skv) \
+        + 4 * B * H * Sq
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def scan_bwd_bound(T, C):
+    """(bound_ms, bound_by) of the reverse scan: a, g and h read, dh and
+    da written, 20 bytes an element; one multiply-add pair and one more
+    multiply an element, far below the float32 rate."""
+    return 1e3 * 20 * T * C / HBM_BYTES_PER_S, "bytes"
+
+
+def normwise(got, want) -> float:
+    """max |got - want| over max |want|, in float64 on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def phase_train_kernels(device):
+    """Phase 12 (a): the two backward kernels against their plain
+    backwards on the card, then their times at the training shapes beside
+    the bound, the plain backward's time and PyTorch's yardstick (SDPA's
+    forward + backward through autograd, cuDNN backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    cases = 0
+    for T, C in [(T, C) for T in SCAN_T for C in SCAN_C] + [SSD_SCAN]:
+        a = torch.rand(T, C, generator=gen, device=device)
+        u = torch.randn(T, C, generator=gen, device=device)
+        g = torch.randn(T, C, generator=gen, device=device)
+        for h0 in (None, torch.randn(C, generator=gen, device=device)):
+            h = ds.decay_scan_cuda(a, u, h0)
+            got = ds.decay_scan_bwd_cuda(a, h, g, h0)
+            want = ref.decay_scan_bwd_ref(a, h, g, h0)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("da", "du", "dh0"), got, want):
+                check((x is None) == (y is None) and
+                      (x is None or bitwise_equal(x, y)),
+                      f"decay_scan_bwd {name} != plain at T={T} C={C} "
+                      f"h0={h0 is not None}")
+            cases += 1
+        del a, u, g, h, got, want
+    emit(decay_scan_bwd_grid={"cases": cases, "bitwise_vs_plain_card": True})
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    records, failed = [], []
+    for B, H, Kh, Sq, Skv, D, causal, window, softcap in TRAIN_ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, Sq, D, generator=gen, device=device)
+            k = torch.randn(B, Kh, Skv, D, generator=gen, device=device)
+            v = torch.randn(B, Kh, Skv, D, generator=gen, device=device)
+            do = torch.randn(B, H, Sq, D, generator=gen, device=device)
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            want = ref.attention_bwd_ref(
+                *(x.float() for x in (q, k, v, o, lse, do)), **kw)
+            torch.cuda.synchronize()
+            limit = TRAIN_ATTN_TOL[dtype]
+            errs = {n: normwise(x, y) for n, x, y in
+                    zip(("dq", "dk", "dv"), got, want)}
+            rec = {"shape": [B, H, Kh, Sq, Skv, D], **kw,
+                   "dtype": str(dtype).split(".")[-1],
+                   "normwise": errs, "limit": limit,
+                   "max_abs_err": max(max_abs_err(x.float(), y)
+                                      for x, y in zip(got, want))}
+            records.append(rec)
+            if not (max(errs.values()) <= limit and
+                    all(bool(torch.isfinite(x).all()) for x in got)):
+                failed.append(rec)
+            worst[dtype] = max(worst[dtype], rec["max_abs_err"])
+            del q, k, v, do, o, lse, got, want
+            torch.cuda.empty_cache()
+    emit(flash_attention_bwd_grid={"cases": records})
+    check(not failed, f"flash_attention_bwd != plain: {failed}")
+
+    times = {"decay_scan_bwd": {}, "flash_attention_bwd": {}}
+    for label, (T, C) in TRAIN_SCANS.items():
+        a = torch.rand(T, C, generator=gen, device=device)
+        u = torch.randn(T, C, generator=gen, device=device)
+        g = torch.randn(T, C, generator=gen, device=device)
+        h = ds.decay_scan_cuda(a, u)
+        bound, by = scan_bwd_bound(T, C)
+        times["decay_scan_bwd"][label] = {
+            "shape": [T, C],
+            "ms": graph_ms(lambda: ds.decay_scan_bwd_cuda(a, h, g), 10, 5),
+            "plain_ms": cuda_ms(lambda: ref.decay_scan_bwd_ref(a, h, g), 1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del a, u, g, h
+    for label, (B, H, Kh, S, D, W) in TRAIN_ATTN.items():
+        q = torch.randn(B, H, S, D, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(B, Kh, S, D, generator=gen, device=device,
+                            dtype=torch.bfloat16) for _ in range(2))
+        do = torch.randn_like(q)
+        kw = dict(causal=True, window=W)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        bound, by = attention_bwd_bound(B, H, Kh, S, S, D, True, W, 2)
+        pos = torch.arange(S, device=device)
+        mask = pos[:, None] >= pos[None, :]
+        if W:
+            mask &= pos[:, None] - pos[None, :] < W
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                 enable_gqa=True)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        try:
+            with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+                library_ms = cuda_ms(sdpa_fwd_bwd, 5)
+            library = "cudnn"
+        except RuntimeError as e:      # the backend refuses: the default
+            library_ms, library = cuda_ms(sdpa_fwd_bwd, 5), \
+                f"default (cuDNN refused: {str(e)[:120]})"
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, return_lse=True, **kw), 5)
+        times["flash_attention_bwd"][label] = {
+            "shape": [B, H, Kh, S, S, D], "window": W, "dtype": "bfloat16",
+            "ms": cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw), 5),
+            "plain_ms": cuda_ms(lambda: ref.attention_bwd_ref(
+                q, k, v, o, lse, do, **kw), 1),
+            "fwd_with_lse_ms": fwd_ms,
+            "library_ms": library_ms, "library": library,
+            "bound_ms": bound, "bound_by": by}
+        times["flash_attention_bwd"][label]["fwd_plus_bwd_ms"] = \
+            fwd_ms + times["flash_attention_bwd"][label]["ms"]
+        del q, k, v, do, o, lse, qg, kg, vg, mask
+        torch.cuda.empty_cache()
+    emit(train_kernel_times=times, card=card_name_and_limit())
+    return worst, times
+
+
+def phase_train_blocks(device):
+    """Phase 12 (b): the gradients of a scalar loss (the output times a
+    fixed random cotangent, summed) through one full-width block in
+    float32 at S = 2304, the card with its forward and backward kernels
+    against the CPU with the plain versions: every parameter's and the
+    input's gradient normwise within phase 6's limits (rec 1e-3, attn
+    1e-4, ssd 1e-3)."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import backbone, common
+
+    gen = torch.Generator().manual_seed(13)
+    positions = torch.arange(BLOCK_S)
+    out = {}
+    for arch, kind, counter in TRAIN_BLOCK_CASES:
+        cfg = load_config(arch).model
+        counter = {"decay_scan": ds, "flash_attention": fa}[counter]
+        x = torch.randn(1, BLOCK_S, cfg.d_model, generator=gen)
+        ct = torch.randn(1, BLOCK_S, cfg.d_model, generator=gen)
+        tree = common.init_tree(backbone.block_specs(kind, cfg), gen,
+                                torch.float32, "cpu")
+        grads = {}
+        for where in ("cpu", device):
+            p = common.trainable(common.tree_map(
+                lambda t: t.to(where), tree))
+            xg = x.to(where).detach().requires_grad_()
+            before = (counter.launches, counter.bwd_launches)
+            t0 = time.perf_counter()
+            y, _, _ = backbone.apply_block(kind, p, xg, cfg,
+                                           positions.to(where))
+            (y * ct.to(where)).sum().backward()
+            if where == device:
+                torch.cuda.synchronize()
+                check((counter.launches, counter.bwd_launches) ==
+                      (before[0] + 1, before[1] + 1),
+                      f"{arch} {kind} block: launches "
+                      f"{counter.launches - before[0]} forward, "
+                      f"{counter.bwd_launches - before[1]} backward")
+            grads[str(where)] = ([xg.grad] + [t.grad for t in
+                                              common.tree_leaves(p)],
+                                 time.perf_counter() - t0)
+        (want, cpu_s), (got, card_s) = grads["cpu"], grads[str(device)]
+        errs = [normwise(g, w) for g, w in zip(got, want)]
+        check(max(errs) <= BLOCK_TOL[kind], f"{arch} {kind} block "
+              f"gradients: card vs CPU normwise {max(errs)}")
+        key = kind if arch == ARCH else f"{arch}/{kind}"
+        out[key] = {"normwise_err": max(errs), "input_grad_err": errs[0],
+                    "leaves": len(errs), "limit": BLOCK_TOL[kind],
+                    "cpu_s": cpu_s, "card_s": card_s}
+    emit(train_blocks={"S": BLOCK_S, "dtype": "float32", **out})
+
+
+def train_launches(run) -> dict:
+    """The kernel launches one optimizer step must make: per microbatch,
+    each ``rec``/``ssd`` layer one scan and each ``attn``/``moe``/
+    ``cross`` layer one attention forward, the pattern groups' twice under
+    remat (the recompute; the prefix and suffix layers are not
+    rematerialised, as in the reference), and one backward each."""
+    from repro_torch.models import backbone
+
+    plan = backbone.layer_plan(run.model)
+    groups = 2 if run.train.remat else 1
+    out = {}
+    for name, kinds in (("decay_scan", ("rec", "ssd")),
+                        ("flash_attention", ("attn", "moe", "cross"))):
+        edge = sum(k in kinds for k in plan.prefix + plan.suffix)
+        body = sum(k in kinds for k in plan.pattern) * plan.n_groups
+        n = run.train.grad_accum
+        out[name] = n * (edge + groups * body)
+        out[name + "_bwd"] = n * (edge + body)
+    return out
+
+
+def train_on_card(run, device, steps, seed, label, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ):
+    """``steps`` optimizer steps of ``run`` on the card from fresh seeded
+    weights on one repeated synthetic batch (the CLI's Zipf tokens), the
+    kernels' counts set to 0 just before the steps and read just after.
+    Gates: every loss and grad norm finite, the loss of the final
+    parameters (one more forward on the batch) below the first step's
+    (step 0's lr is 0, so step 1's loss equals step 0's), the launches the
+    plan's, parameters and optimizer state on the card.  Returns
+    (launches, record)."""
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import backbone
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import trainer
+
+    cfg = run.model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    mem_before_gb = torch.cuda.memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    state = trainer.init_train_state(
+        run, torch.Generator(device=device).manual_seed(seed), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    data = synthetic_batch(cfg, np.random.default_rng(seed), batch, seq,
+                           device)
+    step = trainer.make_train_step(run, total_steps=steps)
+    losses, norms, lrs, step_s = [], [], [], []
+    ds.launches = ds.bwd_launches = fa.launches = fa.bwd_launches = 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = {"decay_scan": ds.launches, "decay_scan_bwd": ds.bwd_launches,
+                "flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    plan = {k: steps * v for k, v in train_launches(run).items()}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    with torch.no_grad():
+        final = float(backbone.train_loss(
+            state.params, cfg, data,
+            compute_dtype=trainer.DTYPES[run.train.compute_dtype])[0])
+    check(all(np.isfinite(losses + norms + [final])),
+          f"{label}: non-finite loss or grad norm: {losses}, {norms}")
+    check(final < losses[0], f"{label}: loss did not fall: {losses}, "
+          f"final {final}")
+    check(launches == plan, f"{label}: launches {launches}, plan {plan}")
+    check(on_device(tree_leaves(state), device),
+          f"{label}: a parameter or optimizer state left the card")
+    tokens = batch * seq
+    warm = step_s[1:] or step_s
+    rec = {"arch": cfg.name, "params": n_params, "layers": cfg.num_layers,
+           "optimizer": run.train.optimizer,
+           "param_dtype": run.train.param_dtype,
+           "master_weights": state.master is not None,
+           "grad_accum": run.train.grad_accum, "remat": run.train.remat,
+           "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+           "final_loss": final,
+           "grad_norms": norms, "lrs": lrs, "step_s": step_s,
+           "warm_s_per_step": sum(warm) / len(warm),
+           "warm_tok_per_s": tokens * len(warm) / sum(warm),
+           "peak_mem_gb": peak_gb, "mem_before_gb": mem_before_gb,
+           "init_s": init_s,
+           "launches": launches, "launches_plan": plan,
+           "card": card_name_and_limit()}
+    emit(**{f"train_{label}": rec})
+    del state, data, step
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_train(device):
+    """Phase 12 (c) and (d): RecurrentGemma-2B at full width and depth
+    (bf16, AdamW with a float32 master copy, grad_accum 2, remat, batch 2
+    x 4096 tokens, warmup 1, 4 steps), then SmolLM-360M at full width and
+    depth (4 steps with AdamW, 2 with Adafactor).  Returns the launches of
+    each run."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import load_config
+
+    out = {}
+    for label, arch, steps, overrides in TRAIN_RUNS:
+        run = load_config(arch)
+        run = dc.replace(run, train=dc.replace(run.train, warmup_steps=1,
+                                                **overrides))
+        out[label] = train_on_card(run, device, steps, seed=12, label=label)
+    return out
+
+
+def train_kernel_entries(worst, times, runs):
+    """The two backward kernels' entries of the ``kernels`` line: times at
+    RecurrentGemma-2B's training shape (micro-batch 1), SmolLM's beside
+    them, launches from phase 12's training runs."""
+    scan = times["decay_scan_bwd"][ARCH]
+    attn = times["flash_attention_bwd"][ARCH]
+    launches = lambda k: {label: n[k] for label, (n, _) in runs.items()}
+    return [
+        {"name": "decay_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/decay_scan.cu",
+         "replaces": "src/repro/kernels/decay_scan.py:33",
+         "launches": runs["recurrentgemma"][0]["decay_scan_bwd"],
+         "max_abs_err": 0.0, "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+         "library_ms": None, "shape": scan["shape"],
+         "bitwise_vs_plain_card": True,
+         "launches_by_run": launches("decay_scan_bwd"),
+         "mamba2-2.7b": times["decay_scan_bwd"]["mamba2-2.7b"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:37",
+         "launches": runs["recurrentgemma"][0]["flash_attention_bwd"],
+         "max_abs_err": max(worst.values()),
+         "max_abs_err_float32": worst[torch.float32],
+         "max_abs_err_bfloat16": worst[torch.bfloat16],
+         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+         "library_ms": attn["library_ms"], "library": attn["library"],
+         "fwd_plus_bwd_ms": attn["fwd_plus_bwd_ms"], "shape": attn["shape"],
+         "window": attn["window"],
+         "launches_by_run": launches("flash_attention_bwd"),
+         "smollm-360m": times["flash_attention_bwd"]["smollm-360m"]}]
+
+
 def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
     """A ``kernels`` line entry: times at the batch-1 serving shape, the
     batch-2 ones (the path's own batch) beside them."""
@@ -2916,6 +3298,11 @@ def main() -> int:
     phase_moe_ep(device)
     phase_moe_drops(device)
     emit(moe_vision_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_worst, train_times = phase_train_kernels(device)
+    phase_train_blocks(device)
+    train_runs = phase_train(device)
+    emit(train_phase_s=time.perf_counter() - t0)
     backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
     dense_backends = sdpa_dense_backends(device)
     emit(sdpa_backends=backends, sdpa_dense_backends=dense_backends)
@@ -2974,7 +3361,8 @@ def main() -> int:
             families={arch: {**serving_times["flash_attention"][arch],
                              "library_backend": dense_backends[arch][
                                  "default"]}
-                      for arch, *_ in model_attention_shapes()})])
+                      for arch, *_ in model_attention_shapes()}),
+        *train_kernel_entries(train_worst, train_times, train_runs)])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

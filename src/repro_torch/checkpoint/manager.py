@@ -38,7 +38,17 @@ manifest (its ``treedef`` string written in JAX's notation), so a
 checkpoint written by either package restores in the other.  Tensors are
 copied to the host with ``.cpu().numpy()`` at save and restored with
 ``torch.as_tensor(..., device=)`` onto the template leaf's device (or the
-``device`` passed to ``restore``).
+``device`` passed to ``restore``).  A bfloat16 leaf is written as its raw
+two-byte values (numpy has no bfloat16; the file holds what numpy writes
+for JAX's ``ml_dtypes`` bfloat16 arrays, a ``|V2`` array of the same
+bytes) with ``bfloat16`` in the manifest, and read back bit for bit.
+
+A training state (``train.trainer.TrainState``: NamedTuples holding
+``None`` where there is no master copy or sync state, the parameters'
+group stacks as tuples) is one such tree: ``save(step, state)`` and
+``restore(template)`` with a state of the same configuration as the
+template; ``train.trainer.restore_train_state`` makes the restored
+parameters trainable again.
 """
 from __future__ import annotations
 
@@ -103,8 +113,24 @@ def _tree_paths(tree):
 
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:    # raw 2-byte values, as |V2
+            return x.detach().cpu().view(torch.int16).numpy().view("V2")
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
+    """A loaded array as a tensor of ``like``'s dtype on ``device``."""
+    if arr.dtype == np.dtype("V2"):          # bfloat16 bits
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr)
+    return t.to(device=device, dtype=like.dtype)
 
 
 def _hash(arr: np.ndarray) -> str:
@@ -165,7 +191,7 @@ class CheckpointManager:
                 np.save(os.path.join(tmp, name), arr)
                 manifest["leaves"].append({
                     "file": name, "shape": list(arr.shape),
-                    "dtype": str(arr.dtype), "sha": _hash(arr)})
+                    "dtype": _dtype_name(arr), "sha": _hash(arr)})
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
             os.replace(tmp, final) if not os.path.exists(final) else None
@@ -281,9 +307,8 @@ class CheckpointManager:
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{meta['file']}: shape {arr.shape} "
                                      f"!= template {tuple(t.shape)}")
-                arr = torch.as_tensor(
-                    arr, device=t.device if device is None else device
-                ).to(t.dtype)
+                arr = _from_host(arr, t, t.device if device is None
+                                 else device)
             out.append(arr)
         return _unflatten(template, iter(out))
 

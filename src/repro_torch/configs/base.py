@@ -1,12 +1,12 @@
 """Architecture / run configuration schema and registry (PyTorch port).
 
 A copy of ``repro.configs.base`` (plain Python, copied so that the port
-imports nothing of ``repro``), cut to what the serving path of every
-family reads: ``ModelConfig`` keeps the JAX names and defaults of those
-fields (the JAX package's ``q_chunk`` / ``kv_chunk`` tile its jnp
-attention and have no use here), and ``RunConfig`` holds the model alone
-(the training settings come back with the training code).  The registry
-lists the JAX package's ten architectures in its order.
+imports nothing of ``repro``): ``ModelConfig`` keeps the JAX names and
+defaults of the fields the serving and training paths read (the JAX
+package's ``q_chunk`` / ``kv_chunk`` tile its jnp attention and have no
+use here), ``TrainConfig`` is the JAX one field for field, and
+``RunConfig`` holds both.  The registry lists the JAX package's ten
+architectures in its order.
 """
 from __future__ import annotations
 
@@ -77,8 +77,32 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"       # adamw | adafactor
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    master_weights: bool = True    # fp32 master copies (adamw only)
+    grad_accum: int = 1            # microbatch count per step
+    remat: bool = True
+    moe_aux_weight: float = 0.01
+    moe_z_weight: float = 1e-3
+    label_smoothing: float = 0.0   # read by neither package's loss
+    # beyond-paper: HT-thinned gradient sync (train/compression.py)
+    thinned_sync: bool = False
+    thinned_sync_budget: float = 0.25
+    thinned_sync_alpha: float = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 ARCH_IDS = [

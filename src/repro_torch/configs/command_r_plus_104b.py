@@ -1,5 +1,5 @@
 """command-r-plus-104b — 64L d=12288 96H GQA kv=8 d_ff=33792 v=256000."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -17,6 +17,7 @@ def get_config() -> RunConfig:
             use_bias=False,
             rope_theta=75000000.0,
         ),
+        train=TrainConfig(grad_accum=16),
     )
 
 
@@ -35,4 +36,5 @@ def get_smoke_config() -> RunConfig:
             vocab_size=271,
             rope_theta=10000.0,
         ),
+        train=TrainConfig(),
     )

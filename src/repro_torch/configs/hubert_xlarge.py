@@ -1,7 +1,7 @@
 """hubert-xlarge — 48L d=1280 16H kv=16 d_ff=5120 v=504 encoder-only
 (arXiv:2106.07447).  Conv waveform frontend is a STUB: input_specs supplies
 precomputed frame embeddings [B, S, 512]."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -21,6 +21,7 @@ def get_config() -> RunConfig:
             input_mode='frames',
             frame_dim=512,
         ),
+        train=TrainConfig(grad_accum=2),
     )
 
 
@@ -42,4 +43,5 @@ def get_smoke_config() -> RunConfig:
             input_mode='frames',
             frame_dim=24,
         ),
+        train=TrainConfig(),
     )

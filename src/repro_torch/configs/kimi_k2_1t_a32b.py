@@ -7,7 +7,7 @@ implements; the port adds none.  At full depth the model holds
 1,028,299,424,768 parameters (2.06 TB in bfloat16), so one card runs it
 cut in depth (``dataclasses.replace(cfg, num_layers=2)``: the dense layer
 and one MoE layer, 19,967,682,560 parameters)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -30,6 +30,8 @@ def get_config() -> RunConfig:
             first_dense_layers=1,
             rope_theta=50000.0,
         ),
+        train=TrainConfig(optimizer="adafactor", master_weights=False,
+                          grad_accum=32),
     )
 
 
@@ -53,4 +55,5 @@ def get_smoke_config() -> RunConfig:
             moe_d_ff=32,
             first_dense_layers=1,
         ),
+        train=TrainConfig(optimizer="adafactor", master_weights=False),
     )

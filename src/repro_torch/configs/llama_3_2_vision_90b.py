@@ -4,7 +4,7 @@ a STUB, as in the JAX package: the caller supplies precomputed patch
 embeddings ``image_embeds`` [B, 1600, d].  At full depth the model holds
 87,666,794,536 parameters (175 GB in bfloat16); one card runs it cut in
 depth (25 layers: 20 self-attention and 5 cross-attention)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -23,6 +23,7 @@ def get_config() -> RunConfig:
             num_vision_tokens=1600,
             rope_theta=500000.0,
         ),
+        train=TrainConfig(grad_accum=16),
     )
 
 
@@ -42,4 +43,5 @@ def get_smoke_config() -> RunConfig:
             cross_attn_every=5,
             num_vision_tokens=16,
         ),
+        train=TrainConfig(),
     )

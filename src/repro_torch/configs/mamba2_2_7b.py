@@ -1,5 +1,5 @@
 """mamba2-2.7b — 64L d=2560 SSD, state=128 (arXiv:2405.21060)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -21,6 +21,7 @@ def get_config() -> RunConfig:
             ssm_conv_width=4,
             ssm_groups=1,
         ),
+        train=TrainConfig(grad_accum=8),
     )
 
 
@@ -44,4 +45,5 @@ def get_smoke_config() -> RunConfig:
             ssm_conv_width=4,
             ssm_groups=1,
         ),
+        train=TrainConfig(),
     )

@@ -1,7 +1,7 @@
 """qwen2-moe-a2.7b — 24L d=2048 16H kv=16, 60 routed top-4 + 4 shared,
 moe_d_ff=1408, v=151936 (hf Qwen1.5-MoE-A2.7B).  60 experts padded to 64
 for EP divisibility (pads masked out of routing)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -23,6 +23,7 @@ def get_config() -> RunConfig:
             moe_d_ff=1408,
             rope_theta=1000000.0,
         ),
+        train=TrainConfig(grad_accum=2),
     )
 
 
@@ -45,4 +46,5 @@ def get_smoke_config() -> RunConfig:
             num_shared_experts=2,
             moe_d_ff=32,
         ),
+        train=TrainConfig(),
     )

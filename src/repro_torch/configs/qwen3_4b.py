@@ -1,5 +1,5 @@
 """qwen3-4b — 36L d=2560 32H GQA kv=8 d_ff=9728 v=151936, qk-norm."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -17,6 +17,7 @@ def get_config() -> RunConfig:
             qk_norm=True,
             rope_theta=1000000.0,
         ),
+        train=TrainConfig(grad_accum=2),
     )
 
 
@@ -35,4 +36,5 @@ def get_smoke_config() -> RunConfig:
             vocab_size=128,
             qk_norm=True,
         ),
+        train=TrainConfig(),
     )

@@ -1,6 +1,6 @@
 """recurrentgemma-2b — 26L d=2560 10H MQA kv=1 d_ff=7680 v=256000;
 RG-LRU + local attention (window 2048), 1:2 pattern (arXiv:2402.19427)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -23,6 +23,7 @@ def get_config() -> RunConfig:
             scale_embeddings=True,
             attn_softcap=0.0,
         ),
+        train=TrainConfig(grad_accum=2),
     )
 
 
@@ -46,4 +47,5 @@ def get_smoke_config() -> RunConfig:
             tie_embeddings=True,
             scale_embeddings=True,
         ),
+        train=TrainConfig(),
     )

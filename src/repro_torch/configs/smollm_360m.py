@@ -1,5 +1,5 @@
 """smollm-360m — 32L d=960 15H GQA kv=5 d_ff=2560 v=49152 (hf SmolLM)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -16,6 +16,7 @@ def get_config() -> RunConfig:
             vocab_size=49152,
             tie_embeddings=True,
         ),
+        train=TrainConfig(grad_accum=1),
     )
 
 
@@ -34,4 +35,5 @@ def get_smoke_config() -> RunConfig:
             vocab_size=128,
             tie_embeddings=True,
         ),
+        train=TrainConfig(),
     )

@@ -1,5 +1,5 @@
 """yi-9b — llama-arch 48L d=4096 32H GQA kv=4 d_ff=11008 v=64000 (arXiv:2403.04652)."""
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, TrainConfig
 
 
 def get_config() -> RunConfig:
@@ -16,6 +16,7 @@ def get_config() -> RunConfig:
             vocab_size=64000,
             rope_theta=5000000.0,
         ),
+        train=TrainConfig(grad_accum=4),
     )
 
 
@@ -33,4 +34,5 @@ def get_smoke_config() -> RunConfig:
             d_ff=160,
             vocab_size=128,
         ),
+        train=TrainConfig(),
     )

@@ -35,6 +35,21 @@
 // stages with ordinary loads instead (`kTma = false`). A chunked
 // (parallel-in-time) scan would not be bitwise equal to the sequential
 // chain.
+//
+// Backward (`decay_scan_bwd`, the gradient the training path takes through
+// the scan; the Pallas kernel has none and JAX differentiates its
+// associative scan). Given a, the forward's states h and the gradient g of
+// h, it walks time in reverse: dh[t] = g[t] + a[t+1] * dh[t+1] (a[T] = 0),
+// writes dh (which is also du), da[t] = dh[t] * h[t-1] (h[-1] = h0, or 0)
+// and dh0 = a[0] * dh[0], each product and sum rounded once (__fmul_rn,
+// __fadd_rn), bitwise equal to `decay_scan_bwd_ref`. The design is the
+// forward's: a block of kWidth channels, warp 1 streaming [kSteps x kWidth]
+// boxes of a, g and h through the same kind of TMA ring, the stages taken
+// from the last time block to the first, warp 0 running the chains
+// backwards from shared memory. h[t0 - 1], which the first row of a stage
+// needs and which lies in the next stage to arrive, is read from device
+// memory once a stage. Bound: it reads a, g and h and writes dh and da, 20
+// bytes an element: 210 MB at [4096, 2560], 62.6 us at 3.35 TB/s.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -141,6 +156,114 @@ decay_scan_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// ------------------------------------------------------------- backward
+constexpr int kBwdBarOffset = sizeof(float) * kStages * 3 * kBox;
+constexpr size_t kBwdSmemBytes = kBwdBarOffset + 8 * 2 * kStages + 128;
+
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads)
+decay_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap hmap,
+                      const float* __restrict__ a,
+                      const float* __restrict__ g,
+                      const float* __restrict__ h,
+                      const float* __restrict__ h0, float* __restrict__ dh,
+                      float* __restrict__ da, float* __restrict__ dh0,
+                      int T, int C) {
+  // [kStages][a, g, h][kSteps][kWidth] floats, then full[kStages],
+  // empty[kStages]; 128-byte aligned for TMA
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 127u) & ~127u;
+  float* const ring = reinterpret_cast<float*>(smem_raw + (base - raw));
+  auto full = [&](int s) { return base + kBwdBarOffset + 8u * s; };
+  auto empty = [&](int s) {
+    return base + kBwdBarOffset + 8u * (kStages + s);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * kWidth;
+  const int n_stages = (T + kSteps - 1) / kSteps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full(s), kTma ? 1 : 32);
+      hopper::mbar_init(empty(s), 1);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 1) {
+    // --------------------------------------------------------- loader
+    for (int st = 0; st < n_stages; ++st) {
+      const int s = st % kStages;
+      const int t0 = (n_stages - 1 - st) * kSteps;     // last block first
+      if (st >= kStages) hopper::mbar_wait(empty(s), (st / kStages - 1) & 1);
+      float* sa = ring + s * 3 * kBox;
+      if (kTma) {
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(full(s), 3 * kBox * sizeof(float));
+          hopper::tma_load_2d(hopper::smem_u32(sa), &amap, full(s), c0, t0);
+          hopper::tma_load_2d(hopper::smem_u32(sa + kBox), &gmap, full(s),
+                              c0, t0);
+          hopper::tma_load_2d(hopper::smem_u32(sa + 2 * kBox), &hmap,
+                              full(s), c0, t0);
+        }
+      } else {
+        for (int e = lane; e < kBox; e += 32) {
+          const int t = t0 + e / kWidth, c = c0 + e % kWidth;
+          const bool in = t < T && c < C;
+          const size_t i = static_cast<size_t>(t) * C + c;
+          sa[e] = in ? a[i] : 0.0f;
+          sa[kBox + e] = in ? g[i] : 0.0f;
+          sa[2 * kBox + e] = in ? h[i] : 0.0f;
+        }
+        hopper::mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ chains
+  const int c = c0 + lane;
+  const bool mine = lane < kWidth && c < C;
+  float carry = 0.0f;       // dh[t + 1]
+  float a_next = 0.0f;      // a[t + 1]
+  for (int st = 0; st < n_stages; ++st) {
+    const int s = st % kStages;
+    const int t0 = (n_stages - 1 - st) * kSteps;
+    // h[t0 - 1]: the last state of the stage still to come
+    float h_before = 0.0f;
+    if (mine) {
+      if (t0 > 0) h_before = h[static_cast<size_t>(t0 - 1) * C + c];
+      else if (h0 != nullptr) h_before = h0[c];
+    }
+    hopper::mbar_wait(full(s), (st / kStages) & 1);
+    if (lane < kWidth) {
+      const float* sa = ring + s * 3 * kBox + lane;
+      const float* sg = sa + kBox;
+      const float* sh = sa + 2 * kBox;
+      const int rows = min(kSteps, T - t0);
+      float* o_dh = dh + static_cast<size_t>(t0) * C + c;
+      float* o_da = da + static_cast<size_t>(t0) * C + c;
+      for (int r = rows - 1; r >= 0; --r) {
+        carry = __fadd_rn(sg[r * kWidth], __fmul_rn(a_next, carry));
+        const float hp = r > 0 ? sh[(r - 1) * kWidth] : h_before;
+        if (mine) {
+          o_dh[static_cast<size_t>(r) * C] = carry;
+          o_da[static_cast<size_t>(r) * C] = __fmul_rn(carry, hp);
+        }
+        a_next = sa[r * kWidth];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(s));
+  }
+  if (mine && dh0 != nullptr) dh0[c] = __fmul_rn(a_next, carry);
+}
+
 // A [T, C] float32 array read in [kSteps x kWidth] boxes.
 bool tensor_map(CUtensorMap* map, const float* ptr, int T, int C) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
@@ -169,6 +292,26 @@ int launch(const float* a, const float* u, const float* h0, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kTma>
+int launch_bwd(const float* a, const float* g, const float* h,
+               const float* h0, float* dh, float* da, float* dh0, int T,
+               int C, cudaStream_t stream) {
+  CUtensorMap maps[3] = {};
+  if (kTma && !(tensor_map(&maps[0], a, T, C) &&
+                tensor_map(&maps[1], g, T, C) &&
+                tensor_map(&maps[2], h, T, C)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      decay_scan_bwd_kernel<kTma>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBwdSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (C + kWidth - 1) / kWidth;
+  decay_scan_bwd_kernel<kTma><<<blocks, kThreads, kBwdSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], a, g, h, h0, dh, da, dh0, T, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. `h0` may be null (a zero start). Returns
@@ -184,4 +327,20 @@ extern "C" int decay_scan_launch(const float* a, const float* u,
                                    reinterpret_cast<uintptr_t>(u)) & 15) == 0;
   return tma ? launch<true>(a, u, h0, out, T, C, s)
              : launch<false>(a, u, h0, out, T, C, s);
+}
+
+// The backward's entry point: a, g (the gradient of h) and h the forward's
+// states, [T, C]; `h0` may be null (a zero start), and `dh0` is written only
+// when it is not null. Writes dh (= du) and da, [T, C]. Returns as
+// `decay_scan_launch` does.
+extern "C" int decay_scan_bwd_launch(const float* a, const float* g,
+                                     const float* h, const float* h0,
+                                     float* dh, float* da, float* dh0, int T,
+                                     int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tma = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(a) |
+                                   reinterpret_cast<uintptr_t>(g) |
+                                   reinterpret_cast<uintptr_t>(h)) & 15) == 0;
+  return tma ? launch_bwd<true>(a, g, h, h0, dh, da, dh0, T, C, s)
+             : launch_bwd<false>(a, g, h, h0, dh, da, dh0, T, C, s);
 }

@@ -92,8 +92,9 @@ size_t smem_bytes_f32(int D) {
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int H, int Kh, int Sq, int Skv, int D, float scale,
-                    int causal, int window, float softcap) {
+                    float* __restrict__ lse, int H, int Kh, int Sq, int Skv,
+                    int D, float scale, int causal, int window,
+                    float softcap) {
   extern __shared__ float smem[];
   const int ldq = D + 1;
   const int ldp = kBK + 1;
@@ -223,6 +224,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = 4 * ty + i;
     if (r < q_rows) {
       const float denom = fmaxf(lsum, 1e-30f);
+      if (lse != nullptr && tx == 0)
+        lse[static_cast<size_t>(bh) * Sq + q0 + r] = m[i] + logf(denom);
       float* orow = out + (static_cast<size_t>(bh) * Sq + q0 + r) * D;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -233,9 +236,10 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Kh, int Sq, int Skv, int D, float scale, int causal,
-               int window, float softcap, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int Kh, int Sq, int Skv, int D,
+               float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes_f32(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -244,7 +248,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attention_f32<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Kh, Sq, Skv,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, Kh, Sq,
+      Skv,
       D, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
@@ -323,9 +328,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int H,
-                   int Kh, int Sq, int Skv, int D, float scale, int causal,
-                   int window, float softcap) {
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   float* __restrict__ lse, int H, int Kh, int Sq, int Skv,
+                   int D, float scale, int causal, int window,
+                   float softcap) {
   using L = TcLayout<ND>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -509,6 +515,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap qmap,
       const int r = row0 + 8 * i;
       if (r < Sq) {
         const float denom = fmaxf(lsum, 1e-30f);
+        if (lse != nullptr && lane % 4 == 0)
+          lse[static_cast<size_t>(bh) * Sq + r] = m[i] + logf(denom);
         bf16* orow = out + (static_cast<size_t>(bh) * Sq + r) * D;
 #pragma unroll
         for (int jj = 0; jj < ND / 8; ++jj) {
@@ -589,8 +597,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int D, int rows,
 
 template <int ND, bool kTma>
 int launch_tc_as(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int Kh, int Sq, int Skv, int D, float scale,
-                 int causal, int window, float softcap, cudaStream_t stream) {
+                 float* lse, int B, int H, int Kh, int Sq, int Skv, int D,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
   CUtensorMap maps[3] = {};
   if (kTma && !(tensor_map(&maps[0], q, D, Sq, B * H) &&
                 tensor_map(&maps[1], k, D, Skv, B * Kh) &&
@@ -605,49 +614,56 @@ int launch_tc_as(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kTcThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, Kh, Sq, Skv, D, scale, causal, window,
+      static_cast<bf16*>(out), lse, H, Kh, Sq, Skv, D, scale, causal, window,
       softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int ND>
 int launch_tc_nd(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int Kh, int Sq, int Skv, int D, float scale,
-                 int causal, int window, float softcap, cudaStream_t stream) {
+                 float* lse, int B, int H, int Kh, int Sq, int Skv, int D,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
   // TMA needs 16-byte aligned bases and row strides
   const bool tma = D % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  return tma ? launch_tc_as<ND, true>(q, k, v, out, B, H, Kh, Sq, Skv, D,
-                                      scale, causal, window, softcap, stream)
-             : launch_tc_as<ND, false>(q, k, v, out, B, H, Kh, Sq, Skv, D,
-                                       scale, causal, window, softcap,
+  return tma ? launch_tc_as<ND, true>(q, k, v, out, lse, B, H, Kh, Sq, Skv,
+                                      D, scale, causal, window, softcap,
+                                      stream)
+             : launch_tc_as<ND, false>(q, k, v, out, lse, B, H, Kh, Sq, Skv,
+                                       D, scale, causal, window, softcap,
                                        stream);
 }
 
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int Kh, int Sq, int Skv, int D, float scale, int causal,
-              int window, float softcap, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int H, int Kh, int Sq, int Skv, int D,
+              float scale, int causal, int window, float softcap,
+              cudaStream_t stream) {
   if (D <= 64)
-    return launch_tc_nd<64>(q, k, v, out, B, H, Kh, Sq, Skv, D, scale,
+    return launch_tc_nd<64>(q, k, v, out, lse, B, H, Kh, Sq, Skv, D, scale,
                             causal, window, softcap, stream);
   if (D <= 128)
-    return launch_tc_nd<128>(q, k, v, out, B, H, Kh, Sq, Skv, D, scale,
+    return launch_tc_nd<128>(q, k, v, out, lse, B, H, Kh, Sq, Skv, D, scale,
                              causal, window, softcap, stream);
-  return launch_tc_nd<256>(q, k, v, out, B, H, Kh, Sq, Skv, D, scale, causal,
-                           window, softcap, stream);
+  return launch_tc_nd<256>(q, k, v, out, lse, B, H, Kh, Sq, Skv, D, scale,
+                           causal, window, softcap, stream);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. dtype 0 is float32 (scalar path), 1 is
-// bfloat16 (tensor cores). The caller passes contiguous tensors with
+// bfloat16 (tensor cores). `lse` is null (serving) or a float32 [B, H, Sq]
+// array that receives each row's log-sum-exp of the masked scores,
+// m + log(max(l, 1e-30)), which the backward (flash_attention_bwd.cu)
+// reads. The caller passes contiguous tensors with
 // Sq, Skv >= 1, 1 <= D <= 256 and H a multiple of Kh. Returns a CUDA error
 // code (0 on success): that of the tensor maps or the shared-memory
 // attribute, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      int dtype,
                                       int B, int H, int Kh, int Sq, int Skv,
                                       int D, float scale, int causal,
                                       int window, float softcap,
@@ -656,10 +672,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, Kh, Sq, Skv, D, scale, causal,
-                      window, softcap, s);
+    return launch_f32(q, k, v, out, static_cast<float*>(lse), B, H, Kh, Sq,
+                      Skv, D, scale, causal, window, softcap, s);
   if (dtype == 1)
-    return launch_tc(q, k, v, out, B, H, Kh, Sq, Skv, D, scale, causal,
-                     window, softcap, s);
+    return launch_tc(q, k, v, out, static_cast<float*>(lse), B, H, Kh, Sq,
+                     Skv, D, scale, causal, window, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

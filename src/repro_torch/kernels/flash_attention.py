@@ -6,10 +6,17 @@ gives its semantics, design and bound): online-softmax GQA attention with
 causal and local-window masks and a tanh softcap, on float32 or bfloat16
 ``q [B, H, Sq, D]``, ``k``/``v [B, Kh, Skv, D]``.  bfloat16 runs both
 products on the tensor cores (``wgmma``, TMA-fed); float32 stays on scalar
-FMAs, since a tensor-core float32 product would be TF32.  ``KERNEL`` builds
-it with ``nvcc`` at first use; nothing is built or loaded at import.
+FMAs, since a tensor-core float32 product would be TF32.  Asked for
+(``return_lse=True``), the same launch also writes each row's
+log-sum-exp, which the backward reads.  The backward,
+``flash_attention_bwd_cuda``, launches ``csrc/flash_attention_bwd.cu``
+(its note gives the design and bound): three kernels (Delta, dK/dV, dQ)
+for one call.  ``KERNEL`` and ``BWD_KERNEL`` build them with ``nvcc`` at
+first use; nothing is built or loaded at import.
 
-``launches`` counts kernel launches made through ``flash_attention_cuda``.
+``launches`` counts forward launches made through ``flash_attention_cuda``,
+``bwd_launches`` backward calls (of three kernels each) made through
+``flash_attention_bwd_cuda``.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 
 from repro_torch.kernels._build import CudaKernel
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # forward launches since the last reset
+bwd_launches = 0        # backward calls (3 kernels each) since the reset
 
 MAX_HEAD_DIM = 256      # the widest O accumulator either path holds
 DTYPES = (torch.float32, torch.bfloat16)   # index = the kernel's dtype code
@@ -29,12 +37,21 @@ DTYPES = (torch.float32, torch.bfloat16)   # index = the kernel's dtype code
 def _bind(lib) -> None:
     fn = lib.flash_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_void_p])
+
+
+def _bind_bwd(lib) -> None:
+    fn = lib.flash_attention_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p])
 
 
 KERNEL = CudaKernel("flash_attention", (), _bind)
+BWD_KERNEL = CudaKernel("flash_attention_bwd", (), _bind_bwd)
 
 
 def check_args(q, k, v, *, window: int, softcap: float) -> None:
@@ -66,35 +83,88 @@ def check_args(q, k, v, *, window: int, softcap: float) -> None:
         raise ValueError("flash_attention: window and softcap must be >= 0")
 
 
+def _require_cuda(name, tensors) -> None:
+    for tname, x in tensors:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} takes CUDA tensors, got {tname} on "
+                             f"{x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+
+
+def _scalars(q, k, causal, window, softcap):
+    B, H, Sq, D = q.shape
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         f"grid's y limit")
+    return (B, H, k.shape[1], Sq, k.shape[2], D,
+            float(np.float32(D ** -0.5)), int(bool(causal)), int(window),
+            float(np.float32(softcap)))
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0):
-    """Launch the kernel on contiguous CUDA tensors; returns [B,H,Sq,D]."""
+                         softcap: float = 0.0, return_lse: bool = False):
+    """Launch the kernel on contiguous CUDA tensors; returns [B,H,Sq,D]
+    (and, with ``return_lse``, the rows' log-sum-exp [B,H,Sq] float32)."""
     global launches
     check_args(q, k, v, window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got "
-                         f"{q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"flash_attention_cuda: {name} must be "
-                             f"contiguous")
-    B, H, Sq, D = q.shape
-    Kh, Skv = k.shape[1], k.shape[2]
+    _require_cuda("flash_attention_cuda", (("q", q), ("k", k), ("v", v)))
+    B, H, Sq, _ = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B and H and Sq:
-        if B * H > 65535:
-            raise ValueError(f"flash_attention_cuda: B*H = {B * H} exceeds "
-                             f"the grid's y limit")
         fn = KERNEL.lib().flash_attention_launch
+        B, H, Kh, Sq, Skv, D, scale, c, w, cap = _scalars(q, k, causal,
+                                                          window, softcap)
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (q, k, v, out)),
-                     DTYPES.index(q.dtype), B, H, Kh, Sq, Skv, D,
-                     float(np.float32(D ** -0.5)), int(bool(causal)),
-                     int(window), float(np.float32(softcap)),
-                     ctypes.c_void_p(stream))
+                     ctypes.c_void_p(lse.data_ptr() if return_lse else 0),
+                     DTYPES.index(q.dtype), B, H, Kh, Sq, Skv, D, scale, c,
+                     w, cap, _stream(q.device))
         if err != 0:
             raise RuntimeError(f"flash_attention launch failed: CUDA error "
                                f"{err}")
         launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """The backward kernels on contiguous CUDA tensors: q, k, v and the
+    forward's output ``o`` and ``lse``, the gradient ``do`` of ``o``.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    global bwd_launches
+    check_args(q, k, v, window=window, softcap=softcap)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"{q.dtype} {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"{tuple(q.shape[:3])}")
+    _require_cuda("flash_attention_bwd_cuda",
+                  (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+                   ("do", do)))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    B, H, Sq, _ = q.shape
+    if not (B and H and Sq):
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = BWD_KERNEL.lib().flash_attention_bwd_launch
+    B, H, Kh, Sq, Skv, D, scale, c, w, cap = _scalars(q, k, causal, window,
+                                                      softcap)
+    with torch.cuda.device(q.device):
+        err = fn(*(ctypes.c_void_p(x.data_ptr())
+                   for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+                 DTYPES.index(q.dtype), B, H, Kh, Sq, Skv, D, scale, c, w,
+                 cap, _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -14,6 +14,15 @@ CPU tensors to the plain versions (``kernels/ref.py``).  There is no
 fallback from one to the other — a CUDA tensor reaches the kernel or the
 call raises.  Nothing is padded: the kernels mask their ragged edges.
 
+``decay_scan`` and ``flash_attention`` are differentiable: where a
+gradient is wanted (grad mode on and an input that requires one) they run
+through ``torch.autograd.Function``s whose backward is the backward kernel
+on the card (``decay_scan_bwd``, ``flash_attention_bwd``) and the plain
+backward (``ref.decay_scan_bwd_ref``, ``ref.attention_bwd_ref``) on the
+CPU; the attention forward then also writes the rows' log-sum-exp, in the
+same launch.  Without one (serving runs under ``inference_mode``) they are
+the plain calls: no log-sum-exp, no saved tensors, no extra launch.
+
 Two contracts every caller of ``thinning_rmw`` inherits from the reference:
 
 * **Full-stream control column.**  ``v_full`` / ``last_t_full`` advance on
@@ -99,8 +108,12 @@ def thinning_rmw_keyed(taus, state, key, q, t, valid, rng, ent=None, *,
                      f"{key.device}")
 
 
-def decay_scan(a, u, h0=None):
-    """h[t] = a[t]*h[t-1] + u[t].  a, u: [T, C] float32; h0: [C] or None."""
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
+def _scan_forward(a, u, h0):
     if a.device.type == "cuda":
         return _ds.decay_scan_cuda(a, u, h0)
     if a.device.type == "cpu":
@@ -109,16 +122,72 @@ def decay_scan(a, u, h0=None):
     raise ValueError(f"decay_scan has no implementation for {a.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D] (float32 or
-    bfloat16)."""
+class _DecayScan(torch.autograd.Function):
+    """``decay_scan`` with its backward kernel (plain loop on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, u, h0):
+        h = _scan_forward(a, u, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        g = g.contiguous()
+        if a.device.type == "cuda":
+            return _ds.decay_scan_bwd_cuda(a, h, g, h0)
+        return ref.decay_scan_bwd_ref(a, h, g, h0)
+
+
+def decay_scan(a, u, h0=None):
+    """h[t] = a[t]*h[t-1] + u[t].  a, u: [T, C] float32; h0: [C] or None.
+    Differentiable in a, u and h0."""
+    if _wants_grad(a, u, h0):
+        return _DecayScan.apply(a, u, h0)
+    return _scan_forward(a, u, h0)
+
+
+def _attention_forward(q, k, v, causal, window, softcap, return_lse):
     if q.device.type == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, softcap=softcap)
+                                        window=window, softcap=softcap,
+                                        return_lse=return_lse)
     if q.device.type == "cpu":
         _fa.check_args(q, k, v, window=window, softcap=softcap)
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap)
+                                 softcap=softcap, return_lse=return_lse)
     raise ValueError(f"flash_attention has no implementation for "
                      f"{q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward kernels (the plain
+    FlashAttention-2 backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _attention_forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cuda":
+            grads = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                 **ctx.masks)
+        else:
+            grads = ref.attention_bwd_ref(q, k, v, out, lse, do, **ctx.masks)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D] (float32 or
+    bfloat16).  Differentiable in q, k and v."""
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _attention_forward(q, k, v, causal, window, softcap, False)

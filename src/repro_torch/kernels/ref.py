@@ -1,10 +1,16 @@
-"""Plain PyTorch versions of the port's three kernels.
+"""Plain PyTorch versions of the port's three kernels and of the two
+backward kernels.
 
 ``decay_scan_ref`` and ``attention_ref`` transcribe ``repro.kernels.ref``'s
 oracles of the same names (held to the JAX package's own tolerances on the
 CPU); the CUDA kernels ``csrc/decay_scan.cu`` (bitwise) and
 ``csrc/flash_attention.cu`` (to a tolerance) are held against them on the
-card.  The rest of this module is the fused persistence-path RMW.
+card.  ``decay_scan_bwd_ref`` and ``attention_bwd_ref`` are their
+gradients, written out as the backward kernels compute them (a reverse
+loop; the FlashAttention-2 backward from the forward's log-sum-exp), and
+hold ``csrc/decay_scan.cu``'s ``decay_scan_bwd`` (bitwise) and
+``csrc/flash_attention_bwd.cu`` (to a tolerance) on the card.  The rest of
+this module is the fused persistence-path RMW.
 
 ``thinning_rmw_ref`` transcribes ``repro.kernels.ref.thinning_rmw_ref`` and
 is bitwise equal to it on the CPU: the same op sequence, each op rounded
@@ -273,22 +279,50 @@ def decay_scan_ref(a: torch.Tensor, u: torch.Tensor,
     return out
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """Dense attention.  q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D].
+def decay_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                       h0: torch.Tensor | None = None):
+    """The gradient of ``decay_scan_ref``: a reverse loop over T.
 
-    K/V are repeated over the group; scores are float32 (products of the
-    inputs, exact for bfloat16), masked to -1e30; the softmax weights are
-    rounded to ``v.dtype`` before the float32 PV product.
+    a, h (the forward's states), g (the gradient of h): [T, C] float32;
+    h0: [C] or None.  ``dh[t] = g[t] + a[t+1] * dh[t+1]`` (the sum of the
+    cotangents reaching h[t]), ``du = dh``, ``da[t] = dh[t] * h[t-1]``
+    (``h[-1]`` = h0, or 0) and ``dh0 = a[0] * dh[0]`` (None without h0).
+    Returns ``(da, du, dh0)``.  Each product and each sum is one torch op,
+    rounded once, so the CUDA kernel is bitwise equal to it.
     """
+    T = a.shape[0]
+    dh = torch.empty_like(g)
+    da = torch.empty_like(a)
+    carry = torch.zeros_like(g[0])
+    a_next = torch.zeros_like(a[0])
+    for t in range(T - 1, -1, -1):
+        carry = a_next * carry
+        carry = g[t] + carry
+        dh[t] = carry
+        if t > 0:
+            da[t] = carry * h[t - 1]
+        elif h0 is not None:
+            da[t] = carry * h0
+        else:
+            da[t] = carry * torch.zeros_like(carry)
+        a_next = a[t]
+    dh0 = None
+    if h0 is not None:
+        dh0 = a[0] * dh[0] if T else torch.zeros_like(h0)
+    return da, dh, dh0
+
+
+def _attention_scores(q, k, causal, window, softcap):
+    """Float32 scores [B, H, Sq, Skv] (scaled, softcapped, unmasked), the
+    tanh of the softcap (or None) and the mask [Sq, Skv]."""
     B, H, Sq, D = q.shape
     Kh, Skv = k.shape[1], k.shape[2]
-    G = H // Kh
-    kk = k.repeat_interleave(G, dim=1)
-    vv = v.repeat_interleave(G, dim=1)
+    kk = k.repeat_interleave(H // Kh, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (D ** -0.5)
+    th = None
     if softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
+        th = torch.tanh(s / softcap)
+        s = th * softcap
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -296,7 +330,60 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= q_pos >= k_pos
     if window > 0:
         mask &= (q_pos - k_pos) < window
+    return s, th, mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, return_lse: bool = False):
+    """Dense attention.  q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D].
+
+    K/V are repeated over the group; scores are float32 (products of the
+    inputs, exact for bfloat16), masked to -1e30; the softmax weights are
+    rounded to ``v.dtype`` before the float32 PV product.  With
+    ``return_lse`` also the rows' log-sum-exp of the masked scores,
+    float32 [B, H, Sq] (what the backward reads).
+    """
+    H, Kh = q.shape[1], k.shape[1]
+    s, _, mask = _attention_scores(q, k, causal, window, softcap)
     s = torch.where(mask, s, -1e30)
     w = torch.softmax(s, dim=-1)
+    vv = v.repeat_interleave(H // Kh, dim=1)
     out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), vv.float())
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0):
+    """The explicit FlashAttention-2 backward of ``attention_ref``, in
+    float32 whatever the inputs' dtype.
+
+    o: the forward's output; lse: its rows' log-sum-exp [B, H, Sq]; do: the
+    gradient of o.  P = exp(s - lse) on the kept pairs (0 elsewhere),
+    dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO o)), times the
+    softcap's derivative 1 - tanh^2(s / c) where there is one; dQ =
+    D^-0.5 dS K, dK = D^-0.5 dS^T Q.  dK and dV are summed over the G query
+    heads of each KV head.  Returns (dq, dk, dv) in the inputs' dtypes.
+    """
+    B, H, Sq, D = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    G = H // Kh
+    s, th, mask = _attention_scores(q, k, causal, window, softcap)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    dof = do.float()
+    kk = k.repeat_interleave(G, dim=1).float()
+    vv = v.repeat_interleave(G, dim=1).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    scale = D ** -0.5
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.view(B, Kh, G, Skv, D).sum(2)
+    dv = dv.view(B, Kh, G, Skv, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

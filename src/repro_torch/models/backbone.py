@@ -1,4 +1,4 @@
-"""Multi-family model backbone with prefill / decode / encode APIs
+"""Multi-family model backbone with train / prefill / decode / encode APIs
 (PyTorch).
 
 The counterpart of ``repro.models.backbone``.  A model is a *layer plan*
@@ -16,6 +16,17 @@ prefix, then group by group, pattern position by pattern position, then
 the suffix), and the decode state as one cache entry per layer.  Like the
 reference, the decode runs the dense ``ffn.moe`` whatever ``moe_impl``
 says (a decode step's few tokens do not divide over ranks).
+
+Training keeps the parameters in the JAX layout instead (``train_specs``:
+the prefix list, one stacked tree per pattern position in ``groups``, the
+suffix list), because two computations of the reference are defined over
+the stacked leaves: Adafactor's factoring and update clip, and the thinned
+sync's blocks.  The forward reads layer g of a stack as a view (one
+``unbind`` per stacked leaf), so the gradients land in the stacked leaf.
+``forward_hidden`` takes either layout; with ``remat`` each group of
+pattern layers is recomputed in the backward
+(``torch.utils.checkpoint``, as the reference checkpoints ``group_body``),
+and ``chunked_xent`` / ``train_loss`` are the reference's loss.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, ffn, mamba2, moe_ep, rglru
 from repro_torch.models.attention import KVCache
@@ -122,6 +134,29 @@ def model_specs(cfg) -> dict:
     if cfg.input_mode == "frames" or not cfg.tie_embeddings:
         s["head"] = Spec((cfg.d_model, Vp))    # untied
     return s
+
+
+def train_specs(cfg) -> dict:
+    """The JAX layout: ``{embed, prefix, groups, suffix, final_norm[,
+    head]}`` with ``groups`` a tuple of one stacked spec tree per pattern
+    position ([n_groups, ...] leaves)."""
+    plan = layer_plan(cfg)
+    s = model_specs(cfg)
+    del s["layers"]
+    s["prefix"] = [block_specs(k, cfg) for k in plan.prefix]
+    s["groups"] = tuple(common.stack_specs(block_specs(k, cfg), plan.n_groups)
+                        for k in plan.pattern) if plan.n_groups else ()
+    s["suffix"] = [block_specs(k, cfg) for k in plan.suffix]
+    return s
+
+
+def init_train_params(cfg, gen: torch.Generator, dtype=torch.float32,
+                      device=None) -> dict:
+    """Random weights in the JAX layout, as a trainable tree (each leaf
+    requires gradients), drawn from ``gen`` (a generator on ``device``)."""
+    return common.trainable(common.init_tree(
+        train_specs(cfg), gen, dtype,
+        device if device is not None else gen.device))
 
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
@@ -229,33 +264,85 @@ def apply_block(kind: str, p, x, cfg, positions, vision=None, *,
     return x, metrics, cache
 
 
+def _unstack(tree, n: int) -> list:
+    """A stacked tree's n layers, each leaf a view of its stack."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in per_key.items()} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+def layer_sections(params, cfg):
+    """(prefix layers, groups, suffix layers) of either layout: each group
+    is the list of its pattern position's layers."""
+    plan = layer_plan(cfg)
+    P = len(plan.pattern)
+    if "layers" in params:                    # the serving layout
+        layers = list(params["layers"])
+        n0 = len(plan.prefix)
+        n1 = n0 + P * plan.n_groups
+        groups = [layers[n0 + g * P:n0 + (g + 1) * P]
+                  for g in range(plan.n_groups)]
+        return layers[:n0], groups, layers[n1:]
+    per_pos = [_unstack(stack, plan.n_groups) for stack in params["groups"]]
+    groups = [[per_pos[i][g] for i in range(P)]
+              for g in range(plan.n_groups)]
+    return list(params["prefix"]), groups, list(params["suffix"])
+
+
 def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
-                   image_embeds=None, layer_metrics: Optional[list] = None):
+                   image_embeds=None, layer_metrics: Optional[list] = None,
+                   remat: bool = False):
     """Embed + all layers + final norm.  inputs: tokens [B, S] (frames
-    [B, S, frame_dim] for frame input) -> [B, S, D].
+    [B, S, frame_dim] for frame input) -> [B, S, D].  ``params`` in the
+    serving layout or the JAX layout (``train_specs``).
 
     ``image_embeds`` [B, Nv, D] is the memory of the ``cross`` layers
     (the vision family needs it).  Each layer's metrics (``apply_block``)
     are appended to ``layer_metrics`` when a list is given; the
-    reference's ``forward_hidden`` returns their sums."""
+    reference's ``forward_hidden`` returns their sums (``train_loss``
+    sums them).  ``remat``: each group of pattern layers is checkpointed
+    (recomputed in the backward), as the reference checkpoints its scan
+    body; the prefix and suffix layers are not."""
+    plan = layer_plan(cfg)
     x = _embed(params, cfg, inputs, compute_dtype)
     vision = _vision(cfg, image_embeds, compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
-        x, m, _ = apply_block(kind, p, x, cfg, positions, vision)
-        if layer_metrics is not None:
-            layer_metrics.append(m)
+    prefix, groups, suffix = layer_sections(params, cfg)
+    metrics = layer_metrics if layer_metrics is not None else []
+
+    def run(kinds, layers, x):
+        out = []
+        for kind, p in zip(kinds, layers):
+            x, m, _ = apply_block(kind, p, x, cfg, positions, vision)
+            out.append(m)
+        return x, out
+
+    x, m = run(plan.prefix, prefix, x)
+    metrics += m
+    for layers in groups:
+        if remat:
+            x, m = checkpoint(run, plan.pattern, layers, x,
+                              use_reentrant=False)
+        else:
+            x, m = run(plan.pattern, layers, x)
+        metrics += m
+    x, m = run(plan.suffix, suffix, x)
+    metrics += m
     return common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _head_weight(params, x_dtype):
+    """The untied head, or the tied embedding transposed, in x_dtype."""
+    if "head" in params:
+        return params["head"].to(x_dtype)
+    return params["embed"]["tok"].to(x_dtype).T    # tied
 
 
 def logits_from_hidden(params, cfg, x) -> torch.Tensor:
     """Full-vocab logits, from the untied head or the tied embedding.
     [B, S, D] -> [B, S, Vp] float32."""
-    if "head" in params:
-        w = params["head"].to(x.dtype)
-    else:
-        w = params["embed"]["tok"].to(x.dtype).T
-    logits = torch.matmul(x, w).float()
+    logits = torch.matmul(x, _head_weight(params, x.dtype)).float()
     Vp = logits.shape[-1]
     if Vp > cfg.vocab_size:  # mask vocab padding
         logits[..., cfg.vocab_size:] = -1e30
@@ -397,3 +484,88 @@ def encode(params, cfg, frames, *, compute_dtype=torch.bfloat16):
     full-sequence logits [B, S, Vp] float32."""
     x = forward_hidden(params, cfg, frames, compute_dtype=compute_dtype)
     return logits_from_hidden(params, cfg, x)
+
+
+# ------------------------------------------------------------------ training
+def chunked_xent(params, cfg, x, labels, valid, *, seq_chunk: int = 512):
+    """Cross-entropy without materialising [B, S, V] logits.
+
+    x: [B, S, D]; labels: [B, S] int64; valid: [B, S] bool.  The sequence
+    is cut into chunks (the largest of ``seq_chunk``, halved, that divides
+    S); each chunk's head product and float32 log-sum-exp are checkpointed
+    (recomputed in the backward), so the peak is [B, chunk, Vp] float32.
+    Returns (mean cross-entropy over the valid tokens, {accuracy, tokens}).
+    """
+    S = x.shape[1]
+    V = cfg.vocab_size
+    chunk = min(seq_chunk, S)
+    while S % chunk:
+        chunk //= 2
+
+    def one_chunk(xc, lc, vc):
+        logits = torch.matmul(xc, _head_weight(params, xc.dtype)).float()
+        if logits.shape[-1] > V:
+            pad = torch.arange(logits.shape[-1], device=x.device) >= V
+            logits = torch.where(pad, -1e30, logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        ce = torch.where(vc, lse - ll, 0.0)
+        correct = vc & (torch.argmax(logits, -1) == lc)
+        return ce.sum(), vc.sum(), correct.sum()
+
+    ce_sum = n_valid = n_correct = 0
+    for i in range(0, S, chunk):
+        ce, nv, nc = checkpoint(one_chunk, x[:, i:i + chunk],
+                                labels[:, i:i + chunk],
+                                valid[:, i:i + chunk], use_reentrant=False)
+        ce_sum, n_valid, n_correct = ce_sum + ce, n_valid + nv, \
+            n_correct + nc
+    total = torch.clamp_min(n_valid, 1)
+    return ce_sum / total, {"accuracy": n_correct / total,
+                            "tokens": total.float()}
+
+
+def train_loss(params, cfg, batch: dict, *, compute_dtype=torch.bfloat16,
+               remat: bool = True, moe_aux_weight: float = 0.01,
+               moe_z_weight: float = 1e-3, seq_chunk: int = 512):
+    """Next-token LM loss (labels for frame input and encoders), plus the
+    MoE aux and z terms.  ``batch``: ``tokens`` [B, S] (or ``frames``
+    [B, S, frame_dim] and ``labels`` [B, S], -1 = no label) and, for the
+    vision family, ``image_embeds``.  Returns (loss, metrics): the summed
+    MoE metrics, accuracy, tokens, ce_loss and loss (0-d float32)."""
+    if cfg.family == "moe" and cfg.moe_impl == "ep_a2a":
+        raise NotImplementedError(
+            f"{cfg.name}: training through moe_ep (moe_impl='ep_a2a') is not "
+            f"ported; use moe_impl='spmd'")
+    frames = cfg.input_mode == "frames"
+    layer_metrics: list = []
+    x = forward_hidden(params, cfg, batch["frames" if frames else "tokens"],
+                       compute_dtype=compute_dtype,
+                       image_embeds=batch.get("image_embeds"),
+                       layer_metrics=layer_metrics, remat=remat)
+    if frames or not cfg.causal:
+        labels = batch["labels"].long()
+        valid = labels >= 0
+        labels = torch.clamp_min(labels, 0)
+    else:
+        tok = batch["tokens"].long()
+        labels = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], 1)
+        valid = torch.ones_like(labels, dtype=torch.bool)
+        valid[:, -1] = False
+    ce, ce_metrics = chunked_xent(params, cfg, x, labels, valid,
+                                  seq_chunk=seq_chunk)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {}
+    for k in ZERO_METRICS:
+        total = zero
+        for m in layer_metrics:
+            total = total + m[k]
+        metrics[k] = total
+    loss = ce
+    if cfg.family == "moe":
+        loss = loss + moe_aux_weight * metrics["moe_aux_loss"] \
+            + moe_z_weight * metrics["moe_z_loss"]
+    metrics.update(ce_metrics)
+    metrics["ce_loss"] = ce
+    metrics["loss"] = loss
+    return loss, metrics

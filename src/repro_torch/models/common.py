@@ -1,12 +1,15 @@
 """Shared model machinery (PyTorch): parameter descriptors and trees,
 norms, rope, the gated activation.
 
-The counterpart of ``repro.models.common``, cut to what the serving paths
-use.  A model is declared as a tree of ``Spec``
+The counterpart of ``repro.models.common``, cut to what the serving and
+training paths use.  A model is declared as a tree of ``Spec``
 descriptors; ``init_tree`` draws each leaf in float32 from one
 ``torch.Generator`` and casts it, and ``Params`` holds the resulting tree
 as an ``nn.Module`` whose leaves keep the JAX package's shapes, so that
-``params["attn"]["wq"]`` reads like the JAX tree.
+``params["attn"]["wq"]`` reads like the JAX tree.  Serving freezes the
+leaves; training holds its parameters as a plain tree (dicts, lists,
+tuples) of leaf tensors that require gradients (``trainable``), walked in
+JAX's flatten order by ``tree_leaves`` / ``tree_map``.
 """
 from __future__ import annotations
 
@@ -93,10 +96,81 @@ def count_params(specs) -> int:
     return sum(count_params(v) for v in values)
 
 
+def stack_specs(spec, n: int):
+    """Prefix every Spec of a tree with a stacking dimension of ``n``
+    layers (the JAX layout of a pattern position's layers).  Each stacked
+    leaf keeps its one layer's fan-in."""
+    def stack(s: Spec) -> Spec:
+        fan_in = s.fan_in
+        if fan_in is None:
+            fan_in = s.shape[0] if len(s.shape) >= 2 else \
+                (s.shape[-1] if s.shape else 1)
+        return Spec((n,) + tuple(s.shape), s.init, fan_in)
+    return _map_tree(stack, spec)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts, lists, tuples and NamedTuples in
+    JAX's flatten order (dict keys sorted; ``None`` holds no leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same places of
+    ``rest``), keeping ``tree``'s structure; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves):
+    """``leaves`` (in JAX's flatten order) in ``template``'s structure."""
+    return _fill(template, iter(leaves))
+
+
+def _fill(t, it):
+    # module level, not a closure: a recursive inner function would hold
+    # its own cell, and with it the leaves, until the garbage collector ran
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        out = {k: _fill(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if _is_namedtuple(t):
+        return type(t)(*(_fill(v, it) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_fill(v, it) for v in t)
+    return next(it)
+
+
+def trainable(tree):
+    """The trainable form of a parameter tree: every tensor a leaf that
+    requires gradients (``Params`` is the frozen serving form)."""
+    return tree_map(lambda x: x.detach().requires_grad_(True), tree)
+
+
 class Params(nn.Module):
     """A parameter tree as a module: dicts become ``Params``, lists
     ``nn.ModuleList``s and tensors frozen ``nn.Parameter``s (serving takes
-    no gradients).  ``p[name]`` and ``name in p`` read it like a dict."""
+    no gradients; ``trainable`` is the training form).  ``p[name]`` and
+    ``name in p`` read it like a dict."""
 
     def __init__(self, tree: dict):
         super().__init__()

@@ -745,3 +745,187 @@ def test_moe_vision_serve_steps_on_card_match_cpu(cuda_device, arch):
     for w, g in zip(*outs):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-4,
                                    atol=5e-4)
+
+
+# ---------------------------------------------------------------- backward
+def _normwise(got, want):
+    """max |got - want| over max |want|, in float32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C", [(1, 1), (37, 5), (129, 16), (300, 64),
+                                 (256, 100), (4096, 2560)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_decay_scan_bwd_bitwise_vs_plain(cuda_device, T, C, with_h0):
+    """The reverse scan against its plain loop on the card, bitwise in da,
+    du and dh0: ragged T and C (the copy path at C = 5, 37 and 100 not a
+    multiple of 4), and RecurrentGemma's [4096, 2560]."""
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(T * 7 + C)
+    a = torch.rand(T, C, generator=gen, device=cuda_device)
+    u = torch.randn(T, C, generator=gen, device=cuda_device)
+    g = torch.randn(T, C, generator=gen, device=cuda_device)
+    h0 = torch.randn(C, generator=gen, device=cuda_device) if with_h0 \
+        else None
+    h = ops.decay_scan(a, u, h0)
+    launches = ds.bwd_launches
+    got = ds.decay_scan_bwd_cuda(a, h, g, h0)
+    want = ref.decay_scan_bwd_ref(a, h, g, h0)
+    torch.cuda.synchronize()
+    assert ds.bwd_launches == launches + 1
+    for x, y in zip(got, want):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert _bitwise(x, y)
+
+
+BWD_CASES = [(2, 4, 4, 64, 64, 64, True, 0, 0.0),        # MHA
+             (2, 8, 2, 100, 100, 64, True, 0, 0.0),      # GQA, ragged
+             (1, 10, 1, 300, 300, 256, True, 128, 0.0),  # MQA, window
+             (1, 4, 1, 150, 150, 128, True, 0, 30.0),    # softcap
+             (2, 4, 2, 77, 130, 80, False, 0, 0.0),      # non-causal
+             (1, 2, 1, 90, 50, 48, False, 0, 0.0),       # Sq > Skv
+             (1, 6, 3, 200, 200, 40, True, 64, 20.0)]    # all of them
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_vs_plain(cuda_device, case, dtype):
+    """The three backward kernels against the plain FlashAttention-2
+    backward in float32 on the same inputs, on the card: normwise 1e-4 in
+    float32 (sums in another order), 2e-2 in bfloat16 (P and dS rounded to
+    bfloat16 before their products, and the outputs to bfloat16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, H, Kh, Sq, Skv, D, causal, window, cap = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * D + H)
+    q = torch.randn(B, H, Sq, D, generator=gen, device=cuda_device).to(dt)
+    k, v = (torch.randn(B, Kh, Skv, D, generator=gen,
+                        device=cuda_device).to(dt) for _ in range(2))
+    do = torch.randn(B, H, Sq, D, generator=gen, device=cuda_device).to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    assert _normwise(lse, lse_ref) <= 1e-5
+    launches = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    f32 = [x.float() for x in (q, k, v, o, lse, do)]
+    want = ref.attention_bwd_ref(*f32, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == launches + 1
+    limit = 1e-4 if dtype == "float32" else 2e-2
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dt and bool(torch.isfinite(x).all())
+        err = _normwise(x, y)
+        assert err <= limit, f"{name}: normwise {err} > {limit}"
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_the_backward_kernels(cuda_device):
+    """``ops.flash_attention`` and ``ops.decay_scan`` under autograd: one
+    forward launch (with the log-sum-exp) and one backward call each, the
+    gradients those of the kernels; without a gradient wanted, the forward
+    alone and no log-sum-exp."""
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(1, 4, 96, 64, generator=gen, device=cuda_device)
+    k, v = (torch.randn(1, 2, 96, 64, generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    f0, b0 = fa.launches, fa.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=True, window=40)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launches, fa.bwd_launches) == (f0 + 1, b0 + 1)
+    o, lse = fa.flash_attention_cuda(q.detach(), k.detach(), v.detach(),
+                                     causal=True, window=40,
+                                     return_lse=True)
+    want = fa.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(),
+                                       o, lse, do, causal=True, window=40)
+    for x, y in zip(grads, want):
+        assert _bitwise(x, y)
+    with torch.inference_mode():
+        ops.flash_attention(q, k, v, causal=True)
+    assert (fa.launches, fa.bwd_launches) == (f0 + 3, b0 + 2)
+
+    a = torch.rand(50, 32, generator=gen, device=cuda_device)
+    u = torch.randn(50, 32, generator=gen, device=cuda_device)
+    a.requires_grad_()
+    u.requires_grad_()
+    f0, b0 = ds.launches, ds.bwd_launches
+    h = ops.decay_scan(a, u)
+    g = torch.randn_like(h)
+    da, du = torch.autograd.grad(h, (a, u), g)
+    assert (ds.launches, ds.bwd_launches) == (f0 + 1, b0 + 1)
+    want = ds.decay_scan_bwd_cuda(a.detach(), h.detach(), g)
+    assert _bitwise(da, want[0]) and _bitwise(du, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,opt", [("recurrentgemma-2b", "adamw"),
+                                      ("smollm-360m", "adafactor"),
+                                      ("mamba2-2.7b", "adamw")])
+def test_train_step_on_card_matches_cpu(cuda_device, arch, opt):
+    """``make_train_step`` on a smoke config on the card, from the same
+    float32 state and batch as on the CPU: both backward kernels (or the
+    attention one alone) launched as the plan says, and the first steps'
+    losses and gradient norms within 1e-4 relative (float32, sums in
+    another order; normwise gradient limits as chip phase 12 (b))."""
+    import dataclasses
+
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import trainer
+
+    run = load_smoke_config(arch)
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, optimizer=opt, param_dtype="float32",
+        compute_dtype="float32", grad_accum=2, warmup_steps=1,
+        learning_rate=1e-3))
+    cpu = torch.device("cpu")
+    state = trainer.init_train_state(run, torch.Generator().manual_seed(0),
+                                     device=cpu)
+    card = trainer.TrainState(
+        step=state.step.to(cuda_device),
+        params=tree_map(lambda p: p.detach().to(cuda_device)
+                        .requires_grad_(), state.params),
+        master=None, opt=tree_map(lambda x: x.to(cuda_device), state.opt),
+        sync=None)
+    batch = synthetic_batch(run.model, np.random.default_rng(1), 4, 128)
+    step = trainer.make_train_step(run, total_steps=10)
+    f0 = (ds.launches, ds.bwd_launches, fa.launches, fa.bwd_launches)
+    for _ in range(3):
+        state, m_cpu = step(state, batch)
+        card, m_card = step(card, {k: v.to(cuda_device)
+                                   for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+                1e-4 * abs(float(m_cpu[k])), k
+    torch.cuda.synchronize()
+    counts = (ds.launches - f0[0], ds.bwd_launches - f0[1],
+              fa.launches - f0[2], fa.bwd_launches - f0[3])
+    kinds = ("rec", "ssd")
+    from repro_torch.models import backbone
+    plan = backbone.layer_plan(run.model)
+    scans = sum(k in kinds for k in plan.kinds)
+    attns = sum(k in ("attn", "moe", "cross") for k in plan.kinds)
+    scan_groups = sum(k in kinds for k in plan.pattern) * plan.n_groups
+    attn_groups = sum(k in ("attn", "moe", "cross")
+                      for k in plan.pattern) * plan.n_groups
+    want = (3 * 2 * (scans + scan_groups), 3 * 2 * scans,
+            3 * 2 * (attns + attn_groups), 3 * 2 * attns)
+    assert counts == want
+    assert all(p.device.type == "cuda" for p in tree_leaves(card))
