@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It builds the port's three CUDA kernels from this checkout's sources
-(``thinning_rmw``, ``decay_scan``, ``flash_attention``: one ``nvcc`` each
-for ``sm_90a``, all started together, into ``build/``), checks with
-``cuobjdump`` that the bfloat16 attention kernel holds ``HGMMA``
-(tensor-core) instructions, then runs eleven phases; any failure raises
-(in a rank too) and the script exits non-zero.
+It builds the port's four CUDA kernel sources from this checkout
+(``thinning_rmw``, ``decay_scan`` with its backward, ``flash_attention``,
+``flash_attention_bwd``: one ``nvcc`` each for ``sm_90a``, all started
+together, into ``build/``), checks with ``cuobjdump`` that the bfloat16
+attention kernels (the forward, and the backward's dK/dV and dQ kernels)
+hold ``HGMMA`` (tensor-core) instructions, then runs twelve phases; any
+failure raises (in a rank too) and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
    version on the CPU (which the CPU tests hold bitwise to the JAX
@@ -194,6 +195,24 @@ for ``sm_90a``, all started together, into ``build/``), checks with
    exactly 2 all-to-alls a call on every rank; at the config's 1.25 both
    drop fractions are printed, with the times of both.
 
+12. Training (it runs after phase 11): (a) ``decay_scan_bwd`` bitwise
+   against its plain reverse loop on the card over phase 4's scan grid,
+   Mamba-2's shape and short and one-stage T (its ring-less path below
+   128 steps); ``flash_attention_bwd`` against the float32 plain
+   backward over phase 4's cases up to 1000 tokens, both training
+   shapes and three shapes whose bfloat16 dK/dV grid splits the
+   query-head group over blocks, normwise within 1e-4 (float32) and 2e-2
+   (bfloat16); then both kernels' times at the training shapes beside the
+   bound, the plain backward and SDPA's cuDNN forward + backward and
+   backward alone (``library_bwd_ms``; ``is_causal`` where there is no
+   window), with the split count.  (b) A full-width ``rec``, ``attn`` and
+   ``ssd`` block's gradients in float32, card against CPU.  (c)
+   RecurrentGemma-2B at full width and depth and (d) SmolLM-360M train a
+   few steps on the card (bfloat16; AdamW with float32 master weights,
+   then Adafactor with a bfloat16 accumulator): launches a step equal to
+   the plan's (a backward call counts once, the reduction of a split
+   group included), a falling loss, s/step, tok/s, peak memory.
+
 After phase 11 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
 its default dispatch picked is named (matched by the kernels it
@@ -339,8 +358,18 @@ TRAIN_ATTN = {ARCH: (1, 10, 1, TRAIN_SEQ, 256, 2048),   # (B, H, Kh, S, D, W)
 TRAIN_SCANS = {ARCH: (TRAIN_SEQ, 2560), "mamba2-2.7b": SSD_SCAN}
 TRAIN_ATTN_CASES = [c for c in ATTN_CASES if c[3] <= 1000] + \
     [(B, H, Kh, S, S, D, True, W, 0.0)
-     for B, H, Kh, S, D, W in TRAIN_ATTN.values()]
+     for B, H, Kh, S, D, W in TRAIN_ATTN.values()] + \
+    [(1, 12, 1, 2000, 2000, 64, True, 100, 0.0),     # the bf16 dK/dV grid
+     (1, 10, 1, 2500, 2500, 256, True, 300, 10.0),   # splits the group
+     (2, 6, 1, 500, 700, 128, False, 0, 0.0)]        # (G not a multiple of
+                                                     # the splits, windows
+                                                     # ending inside a key
+                                                     # tile, Skv % 64 != 0)
 TRAIN_ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# calls a timing of the attention backward and its SDPA yardstick averages
+# (phase 12 (a)): host-launched autograd calls jitter, so the comparison
+# reads device time over this many calls
+YARD_REPS = 20
 TRAIN_BLOCK_CASES = [(ARCH, "rec", "decay_scan"),
                      (ARCH, "attn", "flash_attention"),
                      ("mamba2-2.7b", "ssd", "decay_scan")]
@@ -504,12 +533,18 @@ def build_kernels():
     sass = sass_counts(flash_attention.KERNEL.library_path(),
                        "flash_attention_tc", ("HGMMA", "HMMA"))
     check(sass["HGMMA"] > 0, f"no HGMMA in the bf16 attention kernel: {sass}")
+    bwd_sass = {name: sass_counts(flash_attention.BWD_KERNEL.library_path(),
+                                  name, ("HGMMA", "HMMA"))
+                for name in ("attn_bwd_dkdv_tc", "attn_bwd_dq_tc")}
+    check(all(c["HGMMA"] > 0 for c in bwd_sass.values()),
+          f"no HGMMA in a bf16 attention backward kernel: {bwd_sass}")
     emit(build={"wall_s": wall, "kernels": {
         k.name: {"seconds": k.build_seconds,
                  "ptxas": [ln.strip() for ln in k.build_log.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "C7512" in ln]}
-        for k in kernels}, "flash_attention_tc_sass": sass})
+        for k in kernels}, "flash_attention_tc_sass": sass,
+        "flash_attention_bwd_sass": bwd_sass})
 
 
 def keyed_table(rng, N, T):
@@ -1366,6 +1401,32 @@ def attention_limit(want: torch.Tensor) -> torch.Tensor:
     if want.dtype == torch.bfloat16:
         return BF16_RTOL * w + BF16_FLOOR * w.amax(-1, keepdim=True)
     return F32_TOL + F32_TOL * w
+
+
+def device_ms(fn, reps: int, sessions: int = 2):
+    """Device milliseconds per call of ``fn``: the summed durations of the
+    GPU kernels (and memory operations) that ``reps`` calls launch, under
+    ``torch.profiler`` after a warm-up, so host time between them is left
+    out; None where the profiler records no device activity.  The larger
+    of ``sessions`` profiles: a session can miss a kernel's records (one
+    missed cuDNN's forward kernel on every call), never add one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            ms = sum(spans) / 1e3 / reps
+            best = ms if best is None else max(best, ms)
+    return best
 
 
 def device_kernels(fn) -> set:
@@ -2907,8 +2968,14 @@ def normwise(got, want) -> float:
 def phase_train_kernels(device):
     """Phase 12 (a): the two backward kernels against their plain
     backwards on the card, then their times at the training shapes beside
-    the bound, the plain backward's time and PyTorch's yardstick (SDPA's
-    forward + backward through autograd, cuDNN backend)."""
+    the bound, the plain backward's time and PyTorch's yardstick (SDPA,
+    cuDNN backend, with ``is_causal`` where there is no window: forward +
+    backward through autograd, and the backward alone on a retained
+    graph).  The attention backward, its forward and the yardstick are
+    each timed by device time (``device_ms``: the profiler's kernel
+    durations, the ``library_*`` and ``*device_ms`` fields) and by CUDA
+    events (``ms``, ``library_*events_ms``) over ``YARD_REPS`` calls; the
+    comparison reads device time."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2918,7 +2985,10 @@ def phase_train_kernels(device):
 
     gen = torch.Generator(device=device).manual_seed(12)
     cases = 0
-    for T, C in [(T, C) for T in SCAN_T for C in SCAN_C] + [SSD_SCAN]:
+    # the short path below 128 steps and the ring from one full stage
+    short = [(100, 2560), (127, 37), (128, 2560)]
+    for T, C in [(T, C) for T in SCAN_T for C in SCAN_C] + [SSD_SCAN] + \
+            short:
         a = torch.rand(T, C, generator=gen, device=device)
         u = torch.randn(T, C, generator=gen, device=device)
         g = torch.randn(T, C, generator=gen, device=device)
@@ -2991,37 +3061,61 @@ def phase_train_kernels(device):
         kw = dict(causal=True, window=W)
         o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         bound, by = attention_bwd_bound(B, H, Kh, S, S, D, True, W, 2)
-        pos = torch.arange(S, device=device)
-        mask = pos[:, None] >= pos[None, :]
+        # SDPA with the same masks: is_causal alone where there is no
+        # window (its fastest call), else the boolean causal-window mask
+        mask = None
         if W:
-            mask &= pos[:, None] - pos[None, :] < W
+            pos = torch.arange(S, device=device)
+            mask = (pos[:, None] >= pos[None, :]) & \
+                (pos[:, None] - pos[None, :] < W)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
         def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                                 enable_gqa=True)
-            torch.autograd.grad(out, (qg, kg, vg), do)
+            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+        def sdpa_times():
+            """Forward + backward, the backward alone (on a retained
+            graph) and the forward alone by device time; the first two
+            also by CUDA events."""
+            out = sdpa()
+            bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                              retain_graph=True)
+            return {"library_ms": device_ms(sdpa_fwd_bwd, YARD_REPS),
+                    "library_bwd_ms": device_ms(bwd, YARD_REPS),
+                    "library_fwd_ms": device_ms(sdpa, YARD_REPS),
+                    "library_events_ms": cuda_ms(sdpa_fwd_bwd, YARD_REPS),
+                    "library_bwd_events_ms": cuda_ms(bwd, YARD_REPS)}
 
         try:
             with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
-                library_ms = cuda_ms(sdpa_fwd_bwd, 5)
-            library = "cudnn"
+                library = sdpa_times()
+            library["library"] = "cudnn"
         except RuntimeError as e:      # the backend refuses: the default
-            library_ms, library = cuda_ms(sdpa_fwd_bwd, 5), \
-                f"default (cuDNN refused: {str(e)[:120]})"
-        fwd_ms = cuda_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, return_lse=True, **kw), 5)
-        times["flash_attention_bwd"][label] = {
-            "shape": [B, H, Kh, S, S, D], "window": W, "dtype": "bfloat16",
-            "ms": cuda_ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, lse, do, **kw), 5),
-            "plain_ms": cuda_ms(lambda: ref.attention_bwd_ref(
-                q, k, v, o, lse, do, **kw), 1),
-            "fwd_with_lse_ms": fwd_ms,
-            "library_ms": library_ms, "library": library,
-            "bound_ms": bound, "bound_by": by}
-        times["flash_attention_bwd"][label]["fwd_plus_bwd_ms"] = \
-            fwd_ms + times["flash_attention_bwd"][label]["ms"]
+            library = sdpa_times()
+            library["library"] = f"default (cuDNN refused: {str(e)[:120]})"
+        library["library"] += ", is_causal" if mask is None else \
+            ", boolean mask"
+        fwd = lambda: fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        rec = {"shape": [B, H, Kh, S, S, D], "window": W, "dtype": "bfloat16",
+               "ms": cuda_ms(bwd, YARD_REPS), "device_ms":
+               device_ms(bwd, YARD_REPS),
+               "plain_ms": cuda_ms(lambda: ref.attention_bwd_ref(
+                   q, k, v, o, lse, do, **kw), 1),
+               "fwd_with_lse_ms": cuda_ms(fwd, YARD_REPS),
+               "fwd_with_lse_device_ms": device_ms(fwd, YARD_REPS),
+               **library, "splits": fa.bwd_splits(q, k),
+               "bound_ms": bound, "bound_by": by}
+        rec["fwd_plus_bwd_ms"] = rec["fwd_with_lse_ms"] + rec["ms"]
+        if rec["device_ms"] is not None:
+            rec["fwd_plus_bwd_device_ms"] = \
+                rec["fwd_with_lse_device_ms"] + rec["device_ms"]
+        times["flash_attention_bwd"][label] = rec
         del q, k, v, do, o, lse, qg, kg, vg, mask
         torch.cuda.empty_cache()
     emit(train_kernel_times=times, card=card_name_and_limit())
@@ -3034,7 +3128,8 @@ def phase_train_blocks(device):
     float32 at S = 2304, the card with its forward and backward kernels
     against the CPU with the plain versions: every parameter's and the
     input's gradient normwise within phase 6's limits (rec 1e-3, attn
-    1e-4, ssd 1e-3)."""
+    1e-4, ssd 1e-3).  The attn block's card gradients then go through the
+    thinned gradient sync on the card (``thinned_sync_on_card``)."""
     from repro_torch.configs.base import load_config
     from repro_torch.kernels import decay_scan as ds
     from repro_torch.kernels import flash_attention as fa
@@ -3078,7 +3173,43 @@ def phase_train_blocks(device):
         out[key] = {"normwise_err": max(errs), "input_grad_err": errs[0],
                     "leaves": len(errs), "limit": BLOCK_TOL[kind],
                     "cpu_s": cpu_s, "card_s": card_s}
+        if kind == "attn":
+            out[key]["thinned_sync"] = thinned_sync_on_card(got[1:])
     emit(train_blocks={"S": BLOCK_S, "dtype": "float32", **out})
+
+
+def thinned_sync_on_card(grads) -> dict:
+    """The thinned gradient sync on a block's gradients on the card
+    against the same gradients on the CPU, in both modes: each leaf's
+    uniforms (jax.random's bits, drawn on the card) bitwise equal, the
+    same blocks kept, and the synced gradients within 1e-5 normwise (the
+    block RMS reductions sum in another order)."""
+    from repro_torch.kernels import threefry
+    from repro_torch.train import compression as cmp
+
+    key = threefry.prng_key(3)
+    host = [g.cpu() for g in grads]
+    block = cmp.ThinnedSyncConfig().block
+    for k, g in zip(threefry.split(key, len(grads)), grads):
+        nb = -(-g.numel() // block)
+        check(bitwise_equal(threefry.uniform(k, nb, g.device),
+                            threefry.uniform(k, nb)),
+              f"thinned sync: uniforms on the card != CPU at {nb} blocks")
+    out = {"leaves": len(grads), "blocks": sum(
+        -(-g.numel() // block) for g in grads)}
+    for mode in ("ht", "ef"):
+        cfg = cmp.ThinnedSyncConfig(mode=mode)
+        got, _, m_card = cmp.thin_gradients(grads, cmp.init_state(grads),
+                                            key, cfg)
+        want, _, m_cpu = cmp.thin_gradients(host, cmp.init_state(host),
+                                            key, cfg)
+        err = max(normwise(a, b) for a, b in zip(got, want))
+        kept = float(m_card["sync_volume_fraction"])
+        check(kept == float(m_cpu["sync_volume_fraction"]) and err <= 1e-5,
+              f"thinned sync {mode}: card kept {kept}, CPU "
+              f"{float(m_cpu['sync_volume_fraction'])}, normwise {err}")
+        out[mode] = {"kept": kept, "normwise_err": err}
+    return out
 
 
 def train_launches(run) -> dict:
@@ -3225,8 +3356,15 @@ def train_kernel_entries(worst, times, runs):
          "max_abs_err_bfloat16": worst[torch.bfloat16],
          "ms": attn["ms"], "plain_ms": attn["plain_ms"],
          "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
-         "library_ms": attn["library_ms"], "library": attn["library"],
-         "fwd_plus_bwd_ms": attn["fwd_plus_bwd_ms"], "shape": attn["shape"],
+         "library_ms": attn["library_ms"],
+         "library_bwd_ms": attn["library_bwd_ms"], "library": attn["library"],
+         "library_fwd_ms": attn["library_fwd_ms"],
+         "library_events_ms": attn["library_events_ms"],
+         "library_bwd_events_ms": attn["library_bwd_events_ms"],
+         "device_ms": attn["device_ms"],
+         "fwd_plus_bwd_ms": attn["fwd_plus_bwd_ms"],
+         "fwd_plus_bwd_device_ms": attn.get("fwd_plus_bwd_device_ms"),
+         "shape": attn["shape"],
          "window": attn["window"],
          "launches_by_run": launches("flash_attention_bwd"),
          "smollm-360m": times["flash_attention_bwd"]["smollm-360m"]}]

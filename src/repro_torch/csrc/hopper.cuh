@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads and (on the host) their tensor maps, the async-proxy
-// fence, register reallocation, shared memory matrix descriptors for
-// 128-byte swizzled tiles, and warpgroup matrix multiplies (wgmma, bf16 in,
-// f32 accumulate).
+// TMA tile loads and stores and (on the host) their tensor maps, named
+// barriers, the async-proxy fence, register reallocation, shared memory
+// matrix descriptors for 128-byte swizzled tiles, and warpgroup matrix
+// multiplies (wgmma, bf16 in, f32 accumulate).
 //
 // Tile layout. A tile is stored as chunks of [rows x 64] bf16, one 128-byte
 // row per tile row, the chunk 1024-byte aligned, with the 16-byte pieces of
@@ -104,6 +104,41 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// Store a shared-memory box to (c0, c1) of a 2-D tensor map; the part of
+// the box outside the tensor is not written. The store joins this thread's
+// open bulk group: `bulk_commit` closes it, `bulk_wait_read` waits until the
+// shared memory of all but N of the thread's groups has been read,
+// `bulk_wait` until their writes are done.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers (0 is __syncthreads): `bar.sync` waits until `threads`
+// threads have arrived on `id` (itself included), `bar.arrive` counts this
+// thread without waiting.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Make this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma operand reads, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -172,6 +207,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32]; A and B from shared memory, both
+// K-major.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_m64n32k16_ss(d, a, b, scale_d);
+  } else {
+    static_assert(N == 64, "N is 32 or 64");
+    wgmma_m64n64k16_ss(d, a, b, scale_d);
+  }
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A from registers (the m16n8k16

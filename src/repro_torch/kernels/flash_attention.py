@@ -10,13 +10,15 @@ FMAs, since a tensor-core float32 product would be TF32.  Asked for
 (``return_lse=True``), the same launch also writes each row's
 log-sum-exp, which the backward reads.  The backward,
 ``flash_attention_bwd_cuda``, launches ``csrc/flash_attention_bwd.cu``
-(its note gives the design and bound): three kernels (Delta, dK/dV, dQ)
-for one call.  ``KERNEL`` and ``BWD_KERNEL`` build them with ``nvcc`` at
-first use; nothing is built or loaded at import.
+(its note gives the design and bound): Delta, dK/dV, for bfloat16 the
+reduction of a split query-head group, then dQ, all for one call.
+``KERNEL`` and ``BWD_KERNEL`` build them with ``nvcc`` at first use;
+nothing is built or loaded at import.
 
 ``launches`` counts forward launches made through ``flash_attention_cuda``,
-``bwd_launches`` backward calls (of three kernels each) made through
-``flash_attention_bwd_cuda``.
+``bwd_launches`` backward calls made through ``flash_attention_bwd_cuda``
+(one call launches three or four kernels: the reduction of a split group
+is part of the call).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 from repro_torch.kernels._build import CudaKernel
 
 launches = 0            # forward launches since the last reset
-bwd_launches = 0        # backward calls (3 kernels each) since the reset
+bwd_launches = 0        # backward calls since the reset
 
 MAX_HEAD_DIM = 256      # the widest O accumulator either path holds
 DTYPES = (torch.float32, torch.bfloat16)   # index = the kernel's dtype code
@@ -45,9 +47,12 @@ def _bind(lib) -> None:
 def _bind_bwd(lib) -> None:
     fn = lib.flash_attention_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_void_p])
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = lib.flash_attention_bwd_splits
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6
 
 
 KERNEL = CudaKernel("flash_attention", (), _bind)
@@ -133,6 +138,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+def bwd_splits(q, k) -> int:
+    """How many blocks split each KV head's query-head group in the
+    backward's dK/dV kernel for q [B,H,Sq,D], k [B,Kh,Skv,D] on their card
+    (1 for float32, or where the grid is already long)."""
+    B, H, _, D = q.shape
+    Kh, Skv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        return BWD_KERNEL.lib().flash_attention_bwd_splits(
+            DTYPES.index(q.dtype), B, H, Kh, Skv, D)
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0):
     """The backward kernels on contiguous CUDA tensors: q, k, v and the
@@ -155,14 +171,19 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if not (B and H and Sq):
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = BWD_KERNEL.lib().flash_attention_bwd_launch
     B, H, Kh, Sq, Skv, D, scale, c, w, cap = _scalars(q, k, causal, window,
                                                       softcap)
+    dtype = DTYPES.index(q.dtype)
+    splits = bwd_splits(q, k)
+    ws = torch.empty(2 * splits * B * Kh * Skv * D, dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
-        err = fn(*(ctypes.c_void_p(x.data_ptr())
-                   for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-                 DTYPES.index(q.dtype), B, H, Kh, Sq, Skv, D, scale, c, w,
-                 cap, _stream(q.device))
+        err = BWD_KERNEL.lib().flash_attention_bwd_launch(
+            *(ctypes.c_void_p(x.data_ptr())
+              for x in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            ctypes.c_void_p(ws.data_ptr() if ws is not None else 0),
+            dtype, B, H, Kh, Sq, Skv, D, scale, c, w, cap, splits,
+            _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")

@@ -10,6 +10,9 @@ words travel in int64 tensors masked to 32 bits.
 
 This is the plain version of the uniform that the keyed ``thinning_rmw``
 kernel draws in-kernel (``csrc/thinning_rmw.cu``, ``event_uniform``).
+``split`` and ``uniform`` reproduce ``jax.random.split`` and
+``jax.random.uniform`` (float32) of jax 0.9 on such a key, which the
+thinned gradient sync draws its uniforms with.
 ``cuda_calls`` counts calls of ``uniform_for_events`` on CUDA tensors, so a
 run can show that its main path left the uniforms to the kernel.
 """
@@ -61,6 +64,40 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
     return x0, x1
+
+
+def split(rng, num: int) -> list:
+    """The ``num`` keys of ``jax.random.split(key, num)``.
+
+    jax 0.9 runs with ``jax_threefry_partitionable`` on, so key i is the
+    two words of ``threefry2x32(key, (0, i))``: the counters are the high
+    and low words of a 64-bit iota (``prng._threefry_split_foldlike`` over
+    ``iota_2x32_shape``).
+    """
+    k0, k1 = as_key(rng)
+    if num <= 0:
+        return []
+    hi, lo = threefry2x32(k0, k1, 0, np.arange(num, dtype=np.int64))
+    return list(zip(np.asarray(hi).tolist(), np.asarray(lo).tolist()))
+
+
+def uniform(rng, n: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` in float32, on ``device`` (the
+    CPU by default).
+
+    The bits of element i are the xor of the two words of
+    ``threefry2x32(key, (0, i))`` (``prng._threefry_random_bits_
+    partitionable``); their top 23 bits are the mantissa of a float in
+    [1, 2), less 1 (``random._uniform``, whose scaling to [0, 1) is then
+    exact).  The words are int64 tensors on ``device``, one path for
+    every device.
+    """
+    k0, k1 = as_key(rng)
+    device = torch.device("cpu" if device is None else device)
+    x0, x1 = threefry2x32(k0, k1, 0, torch.arange(
+        n, dtype=torch.int64, device=device))
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def time_bits(t: torch.Tensor) -> torch.Tensor:

@@ -161,9 +161,16 @@ def shard_of_mesh(mesh, data_axes: Tuple[str, ...] = (DATA_AXIS,)
     axes' sizes multiplied, this rank's coordinates on them flattened
     row-major, and the process group the collectives run on.
 
-    Data axes spanning several mesh dims are supported when they are all
-    of the mesh's dims, in its order, over the whole world (the shard
-    index is then the rank); a data mesh inside a larger one is not.
+    Several data axes may be any dims of a larger mesh (``("pod",
+    "data")`` of a ``("pod", "data", "model")`` mesh), as JAX's engine
+    takes them, in the mesh's order.  The group is then the ranks that
+    share this rank's coordinates on every other dim: one coset of the
+    data dims.  A group ranks its members by global rank, so each coset's
+    ranks, in shard order, must rise (a ``ValueError`` otherwise).
+    ``dist.new_group`` is collective, so every rank creates every coset's
+    group, in one fixed order, on its first call for a mesh and data axes,
+    and keeps its own (later calls reuse it); the ranks of the other dims
+    hold replicas of the same shards.
     """
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh= takes a torch.distributed DeviceMesh "
@@ -181,9 +188,24 @@ def shard_of_mesh(mesh, data_axes: Tuple[str, ...] = (DATA_AXIS,)
         n *= size
     if len(data_axes) == 1:
         return n, shard, mesh.get_group(data_axes[0])
-    if tuple(data_axes) != names or n != dist.get_world_size() \
-            or shard != dist.get_rank():
-        raise NotImplementedError(
-            f"data axes {tuple(data_axes)} of a mesh {names}: several data "
-            f"dims must be the whole mesh over the world, in its order")
-    return n, shard, dist.group.WORLD
+    dims = [names.index(a) for a in data_axes]
+    if dims != sorted(set(dims)):
+        raise ValueError(f"data axes {tuple(data_axes)} must be distinct "
+                         f"dims of the mesh {names}, in its order")
+    others = [i for i in range(len(names)) if i not in dims]
+    cosets = mesh.mesh.permute(others + dims).reshape(-1, n).tolist()
+    if any(r != sorted(r) for r in cosets):
+        raise ValueError(f"data axes {tuple(data_axes)} of the mesh {names}: "
+                         f"a coset's ranks must rise in shard order, got "
+                         f"{cosets}")
+    cache = mesh.__dict__.setdefault("_data_groups", {})
+    if tuple(dims) not in cache:
+        if n == dist.get_world_size():
+            cache[tuple(dims)] = dist.group.WORLD
+        else:
+            for ranks in cosets:
+                g = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    cache[tuple(dims)] = g
+    group = cache[tuple(dims)]
+    return n, shard, group

@@ -12,7 +12,9 @@ CPU with the kernels' plain versions:
 ``synthetic_batch`` draws the JAX CLI's batches with numpy from the seed
 (Zipf tokens, or normal frames and uniform labels, and normal
 ``image_embeds`` for the vision family), so both CLIs see the same data;
-the weights are drawn from a ``torch.Generator`` and differ from JAX's.
+step ``i`` passes the key ``prng_key(i)`` (JAX's ``PRNGKey(i)``) to the
+thinned sync, as the JAX CLI does; the weights are drawn from a
+``torch.Generator`` and differ from JAX's.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import (ARCH_IDS, load_config,
                                       load_smoke_config)
 from repro_torch.core.types import resolve_device
+from repro_torch.kernels.threefry import prng_key
 from repro_torch.models.common import tree_leaves
 from repro_torch.train import trainer
 
@@ -94,7 +97,6 @@ def main(argv=None):
             print(f"resumed from step {start_step}")
 
     step_fn = trainer.make_train_step(run, total_steps=args.steps)
-    sync_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     rng = np.random.default_rng(args.seed + 1)
     for _ in range(start_step):      # the batches already trained on
         synthetic_batch(cfg, rng, args.batch, args.seq)
@@ -103,7 +105,7 @@ def main(argv=None):
     metrics = {"loss": float("nan")}
     for step in range(start_step, args.steps):
         batch = synthetic_batch(cfg, rng, args.batch, args.seq, device)
-        state, metrics = step_fn(state, batch, sync_gen)
+        state, metrics = step_fn(state, batch, prng_key(step))
         tokens_seen += args.batch * args.seq
         if (step + 1) % args.log_every == 0 or step == start_step:
             dt = time.perf_counter() - t0

@@ -32,9 +32,12 @@ never transmitted by a sparse collective; with dense collectives the
 compressed tensor is what a custom reducer would send.  We expose
 ``sync_volume_fraction`` so benchmarks can report the traffic reduction.
 
-The port's uniforms come from an explicit ``torch.Generator`` (one draw a
-leaf, in JAX's leaf order), so they are not JAX's bits: the tests hand
-``_thin_one`` the same uniforms in both packages.
+The uniforms are JAX's bits: ``thin_gradients`` takes a JAX-layout key
+(``prng_key(seed)``, or the words of a ``jax.random.PRNGKey``), splits it
+into one key a leaf in JAX's leaf order and draws a leaf's uniforms from its
+key, with ``kernels.threefry.split`` and ``uniform`` (jax 0.9's
+``jax.random.split`` and ``jax.random.uniform``), so both packages thin the
+same blocks.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.kernels import threefry
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten)
 
@@ -105,20 +109,21 @@ def _thin_one(g: torch.Tensor, err: torch.Tensor, u: torch.Tensor,
     return synced.to(g.dtype), new_err, torch.sum(z), nb
 
 
-def thin_gradients(grads, state: SyncState, gen: torch.Generator,
-                   cfg: ThinnedSyncConfig):
-    """Apply HT-thinned sync to a gradient tree, one uniform a block drawn
-    from ``gen`` (a generator on the gradients' device), leaf by leaf in
-    JAX's order.
+def thin_gradients(grads, state: SyncState, rng, cfg: ThinnedSyncConfig):
+    """Apply HT-thinned sync to a gradient tree: ``rng`` (a JAX-layout key)
+    split into one key a leaf, in JAX's leaf order, and one uniform a block
+    drawn from the leaf's key on the gradients' device, as the reference
+    draws them.
 
     Returns (synced_grads, new_state, metrics) where metrics holds
     ``sync_volume_fraction``, the fraction of blocks actually sent.
     """
     leaves = tree_leaves(grads)
+    keys = threefry.split(rng, len(leaves))
     out, errs, kept, total = [], [], 0, 0
-    for g, e in zip(leaves, tree_leaves(state.err)):
+    for g, e, k in zip(leaves, tree_leaves(state.err), keys):
         nb = -(-g.numel() // cfg.block)
-        u = torch.rand(nb, generator=gen, device=g.device)
+        u = threefry.uniform(k, nb, g.device)
         s, ne, kb, b = _thin_one(g, e, u, cfg)
         out.append(s)
         errs.append(ne)

@@ -2,7 +2,7 @@
 accumulation, remat, mixed precision, optional HT-thinned gradient sync,
 straggler-tolerant microbatching.
 
-``make_train_step(run)`` returns ``train_step(state, batch, gen=None,
+``make_train_step(run)`` returns ``train_step(state, batch, rng=None,
 micro_keep=None) -> (state, metrics)``, the reference's step line for
 line: a float32 master copy only when ``param_dtype`` is not float32;
 the gradient accumulator in float32 for AdamW or master weights, else
@@ -15,9 +15,10 @@ The parameters are a trainable tree in the JAX layout
 (``backbone.train_specs``).  The step updates the state's tensors in
 place (the reference donates its state): the returned state holds the
 same parameter, master and moment tensors, and the state passed in must
-not be read again.  ``gen`` is the ``torch.Generator`` of the thinned
-sync's uniforms (on the parameters' device), needed only with
-``thinned_sync``.
+not be read again.  ``rng`` is the step's JAX-layout key of the thinned
+sync (``kernels.threefry.prng_key(step)`` as the CLIs pass it, or the
+words of a ``jax.random.PRNGKey``), needed only with ``thinned_sync``: the
+sync draws JAX's uniforms from it.
 """
 from __future__ import annotations
 
@@ -119,8 +120,7 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: dict,
-                   gen: Optional[torch.Generator] = None,
-                   micro_keep: Optional[torch.Tensor] = None):
+                   rng=None, micro_keep: Optional[torch.Tensor] = None):
         """One optimizer step.
 
         micro_keep: optional [grad_accum] bool — straggler mask; missing
@@ -168,8 +168,10 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
             cfgc = compression.ThinnedSyncConfig(
                 budget=tcfg.thinned_sync_budget,
                 alpha=tcfg.thinned_sync_alpha)
+            if rng is None:
+                raise ValueError("thinned_sync needs the step's key (rng)")
             grads, sync_state, cmetrics = compression.thin_gradients(
-                grads, state.sync, gen, cfgc)
+                grads, state.sync, rng, cfgc)
             metrics = {**metrics, **cmetrics}
 
         grads, gnorm = optim.clip_by_global_norm(grads, tcfg.grad_clip)

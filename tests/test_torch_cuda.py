@@ -757,12 +757,15 @@ def _normwise(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,C", [(1, 1), (37, 5), (129, 16), (300, 64),
-                                 (256, 100), (4096, 2560)])
+                                 (256, 100), (4096, 2560), (16, 1_310_720),
+                                 (100, 3000), (127, 37), (128, 36)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_decay_scan_bwd_bitwise_vs_plain(cuda_device, T, C, with_h0):
     """The reverse scan against its plain loop on the card, bitwise in da,
     du and dh0: ragged T and C (the copy path at C = 5, 37 and 100 not a
-    multiple of 4), and RecurrentGemma's [4096, 2560]."""
+    multiple of 4), RecurrentGemma's [4096, 2560], and the short path
+    below 128 steps (Mamba-2's [16, 1,310,720], T = 100 and 127) beside
+    the ring at exactly one full stage."""
     from repro_torch.kernels import decay_scan as ds
     from repro_torch.kernels import ref
 
@@ -790,7 +793,15 @@ BWD_CASES = [(2, 4, 4, 64, 64, 64, True, 0, 0.0),        # MHA
              (1, 4, 1, 150, 150, 128, True, 0, 30.0),    # softcap
              (2, 4, 2, 77, 130, 80, False, 0, 0.0),      # non-causal
              (1, 2, 1, 90, 50, 48, False, 0, 0.0),       # Sq > Skv
-             (1, 6, 3, 200, 200, 40, True, 64, 20.0)]    # all of them
+             (1, 6, 3, 200, 200, 40, True, 64, 20.0),    # all of them
+             (1, 4, 2, 70, 90, 36, True, 0, 0.0),        # no TMA (D % 8)
+             (1, 4, 1, 200, 200, 128, True, 70, 0.0)]    # window in a tile
+# shapes where the bfloat16 dK/dV kernel splits the query-head group over
+# blocks (at 132 SMs: 9 splits of 12 heads, 7 of 10, 6 of 6), with windows
+# that end inside a key tile and Skv not a multiple of 64
+SPLIT_CASES = [(1, 12, 1, 2000, 2000, 64, True, 100, 0.0),
+               (1, 10, 1, 2500, 2500, 256, True, 300, 10.0),
+               (2, 6, 1, 500, 700, 128, False, 0, 0.0)]
 
 
 @pytest.mark.cuda
@@ -826,6 +837,67 @@ def test_flash_attention_bwd_vs_plain(cuda_device, case, dtype):
         assert x.dtype == dt and bool(torch.isfinite(x).all())
         err = _normwise(x, y)
         assert err <= limit, f"{name}: normwise {err} > {limit}"
+
+
+def _bwd_inputs(case, dtype, device, seed):
+    B, H, Kh, Sq, Skv, D, causal, window, cap = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, H, Sq, D, generator=gen, device=device).to(dtype)
+    k, v = (torch.randn(B, Kh, Skv, D, generator=gen, device=device)
+            .to(dtype) for _ in range(2))
+    do = torch.randn(B, H, Sq, D, generator=gen, device=device).to(dtype)
+    return q, k, v, do, dict(causal=causal, window=window, softcap=cap)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_flash_attention_bwd_group_split_vs_plain(cuda_device, case):
+    """bfloat16 shapes whose dK/dV grid is short: the group is split over
+    blocks (more than one split; reduced in split order), and the result
+    is held to the plain backward at 2e-2 normwise as without a split."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16, cuda_device, 21)
+    assert fa.bwd_splits(q, k) > 1
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd_ref(
+        *(x.float() for x in (q, k, v, o, lse, do)), **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(x).all())
+        err = _normwise(x, y)
+        assert err <= 2e-2, f"{name}: normwise {err} > 2e-2"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 10, 1, 4096, 4096, 256, True, 2048,
+                                   0.0),
+                                  (2, 15, 5, 4096, 4096, 64, True, 0, 0.0),
+                                  SPLIT_CASES[0]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_is_deterministic(cuda_device, case, dtype):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics; a split group is reduced in a fixed order): the training
+    shapes of RecurrentGemma-2B (split) and SmolLM-360M, and a split
+    case."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do, kw = _bwd_inputs(case, getattr(torch, dtype), cuda_device,
+                                  22)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert _same_bits(x, y)
 
 
 @pytest.mark.cuda
@@ -929,3 +1001,41 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch, opt):
             3 * 2 * (attns + attn_groups), 3 * 2 * attns)
     assert counts == want
     assert all(p.device.type == "cuda" for p in tree_leaves(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ht", "ef"])
+def test_thinned_sync_on_card_matches_cpu(cuda_device, mode):
+    """The thinned gradient sync on the card: each leaf's uniforms (the
+    bits of jax.random's split + uniform, which the CPU tests hold to
+    JAX) bitwise equal to the CPU's, drawn on the card, for odd block
+    counts and one block; the same blocks kept and the synced gradients
+    within 1e-5 normwise (the block RMS reductions sum in another
+    order)."""
+    from repro_torch.kernels import threefry
+    from repro_torch.train import compression
+
+    for seed in (0, 7, 2**31 - 1):
+        key = threefry.prng_key(seed)
+        for n in (1, 3, 1000, 4097):
+            got = threefry.uniform(key, n, cuda_device)
+            assert got.device == cuda_device
+            assert _bitwise(got, threefry.uniform(key, n))
+    rng = np.random.default_rng(5)
+    host = [torch.tensor(rng.normal(size=s).astype(np.float32)
+                         * rng.uniform(0.1, 10.0, size=s[-1:]))
+            for s in [(300, 1024), (4097,), (7, 3), (1,)]]
+    card = [g.to(cuda_device) for g in host]
+    cfg = compression.ThinnedSyncConfig(mode=mode)
+    key = threefry.prng_key(11)
+    got, _, m_card = compression.thin_gradients(
+        card, compression.init_state(card), key, cfg)
+    want, _, m_cpu = compression.thin_gradients(
+        host, compression.init_state(host), key, cfg)
+    assert float(m_card["sync_volume_fraction"]) == \
+        float(m_cpu["sync_volume_fraction"])
+    for g, w in zip(got, want):
+        assert g.device == cuda_device
+        err = float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(
+            1e-30))
+        assert err <= 1e-5

@@ -65,6 +65,38 @@ def test_threefry2x32_bitwise_vs_jax(seed):
                                   want.astype(np.int64))
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 7, 33])
+def test_split_bitwise_vs_jax(seed, num):
+    """``threefry.split`` is ``jax.random.split`` of this jax (with
+    ``jax_threefry_partitionable``), key for key; keys from a split split
+    again the same way."""
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    got = threefry.split(threefry.prng_key(seed), num)
+    np.testing.assert_array_equal(np.asarray(got, np.int64),
+                                  want.astype(np.int64))
+    again = threefry.split(got[-1], 3)
+    np.testing.assert_array_equal(
+        np.asarray(again, np.int64),
+        np.asarray(jax.random.split(jnp.asarray(want[-1]), 3)).astype(
+            np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 3, 17, 1000, 4097])
+def test_uniform_bitwise_vs_jax(seed, n):
+    """``threefry.uniform`` is ``jax.random.uniform(key, (n,))`` in
+    float32, bit for bit, for keys of ``PRNGKey`` and of a split (odd
+    counts and n = 1 included)."""
+    key = jax.random.PRNGKey(seed)
+    for k in [key, *jax.random.split(key, 2)]:
+        want = np.asarray(jax.random.uniform(k, (n,)))
+        got = threefry.uniform(np.asarray(k), n)
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
 def test_rng_keeps_its_old_import_path():
     """``core.thinning`` re-exports the RNG that moved to
     ``kernels.threefry``: the same objects under both names."""

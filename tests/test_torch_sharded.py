@@ -48,6 +48,7 @@ from repro_torch.distributed.spawn import RankFailed, run_ranks  # noqa: E402
 from repro_torch.features.engine import (ShardedFeatureEngine,  # noqa: E402
                                          route_stream_blocks)
 from repro_torch.features.spec import ProfileSpec            # noqa: E402
+from repro_torch.launch.mesh import shard_of_mesh           # noqa: E402
 from repro_torch.serving import pipeline                     # noqa: E402
 from repro_torch.streaming.durable import (DurableStore,     # noqa: E402
                                            PartitionLockedError)
@@ -185,6 +186,44 @@ def _two_dim_run(mesh, d):
     st, info = eng.run_stream(eng.init_state(), keys, qs, ts,
                               batch_per_shard=B, rng=ROOT)
     return dict(shard=eng.shard, state=_np_state(st), z=info.z.numpy())
+
+
+NESTED = {"pod2": (2, 1, 2), "data2": (1, 2, 2)}   # ("pod", "data", "model")
+
+
+def _nested_runs(mesh, d):
+    """Data axes ("pod", "data") inside a ("pod", "data", "model") mesh of
+    4 ranks: two shards, each held by the two ranks of a "model" row.
+    Exact ``run_stream`` in each layout on each mesh shape."""
+    from torch.distributed.device_mesh import DeviceMesh
+    out = {}
+    for name, shape in NESTED.items():
+        mesh3 = DeviceMesh("cpu", torch.arange(N_RANKS).reshape(shape),
+                           mesh_dim_names=("pod", "data", "model"))
+        for layout, (keys, qs, ts), B, rounds in d["nested"]:
+            cfg = EngineConfig(**CFG, budget=0.0005, exact_rounds=rounds)
+            eng = ShardedFeatureEngine(
+                cfg, E, mesh=mesh3, mode="exact", layout=layout,
+                data_axes=("pod", "data"),
+                key_weights=np.bincount(keys, minlength=E))
+            st, info = eng.run_stream(eng.init_state(), keys, qs, ts,
+                                      batch_per_shard=B, rng=ROOT)
+            out[name, layout] = dict(
+                n=eng.n_shards, shard=eng.shard, state=_np_state(st),
+                **{f: getattr(info, f).numpy() for f in
+                   ("z", "p", "lam_hat", "writes")})
+        first = shard_of_mesh(mesh3, ("pod", "data"))
+        again = shard_of_mesh(mesh3, ("pod", "data"))
+        out[name, "cached"] = first[2] is again[2] and first[:2] == again[:2]
+    # a coset whose shard order is not its global-rank order is refused
+    flipped = DeviceMesh("cpu", torch.arange(N_RANKS).flip(0).reshape(
+        NESTED["pod2"]), mesh_dim_names=("pod", "data", "model"))
+    try:
+        shard_of_mesh(flipped, ("pod", "data"))
+        out["flipped"] = None
+    except ValueError as e:
+        out["flipped"] = str(e)
+    return out
 
 
 def _micro_steps(mesh, d):
@@ -352,6 +391,7 @@ def _suite(mesh, d, part):
     """The mirrored mesh cases on one set of ranks, in two parts (one
     spawn each, so each stays well inside its timeout)."""
     cases = {"engine": dict(exact=_exact_runs, two_dim=_two_dim_run,
+                            nested=_nested_runs,
                             layout_stats=_layout_stats, steps=_micro_steps,
                             ckpt=_checkpoints),
              "storage": dict(sink=_sink_runs, residency=_residency_runs,
@@ -427,7 +467,12 @@ def data(tmp_path_factory, jx):
     rng = np.random.default_rng(0)
     w = 1.0 / np.arange(1, 129)
     padding = rng.permutation(128)[rng.choice(128, 1500, p=w / w.sum())]
-    d = dict(exact=exact, steps=tuple(x[:512] for x in uni), worker=worker,
+    # two shards (the nested meshes): the rounds of a 2-shard block
+    nested = [(lay, stream, B, _rounds(stream[0], n=2, batch_per_shard=B,
+                                       layout=lay, local_batch=B))
+              for lay, stream, B, _ in exact]
+    d = dict(exact=exact, nested=nested, steps=tuple(x[:512] for x in uni),
+             worker=worker,
              padding=padding,
              w_rounds=w_rounds, zipf=zipf, zipf_keys=96, z_rounds=z_rounds,
              dir=str(root), ckpt=str(root / "ckpt4"),
@@ -512,6 +557,47 @@ def test_two_dim_data_axes_flatten_row_major(suite, data):
         for a, b, f in zip(r["two_dim"]["state"],
                            r["exact"]["block"]["state"], FIELDS):
             _bitwise(a, b, f)
+
+
+def test_nested_data_axes_groups_are_kept_and_checked(suite):
+    """``shard_of_mesh`` over nested data axes makes the coset groups once
+    a mesh (a second call returns the same group), and refuses a mesh
+    whose coset ranks do not rise in shard order (a process group ranks
+    its members by global rank, so shard and group rank would part)."""
+    for r in suite:
+        assert all(r["nested"][name, "cached"] for name in NESTED)
+        assert "must rise in shard order" in r["nested"]["flipped"]
+
+
+@pytest.mark.parametrize("shape", list(NESTED))
+@pytest.mark.parametrize("layout", ["block", "virtual"])
+def test_nested_data_axes_match_local_stream(suite, data, jx, shape,
+                                             layout):
+    """Data axes ("pod", "data") inside a 3-dim ("pod", "data", "model")
+    mesh of (2, 1, 2) and (1, 2, 2) on 4 ranks: 2 shards, the shard the
+    row-major index over the data axes, each "model" row a group of its
+    own; exact ``run_stream`` on every rank against the JAX
+    single-device engine, bitwise in z, p, lam_hat, writes and the state
+    (each row's two shards concatenated, after the layout's
+    permutation)."""
+    i = ["block", "virtual"].index(layout)
+    _, (keys, qs, ts), B, rounds = data["nested"][i]
+    js, ji = _jax_local(jx, keys, qs, ts, batch=B, rounds=rounds)
+    dims = NESTED[shape]
+    runs = [r["nested"][shape, layout] for r in suite]
+    for rank, got in enumerate(runs):
+        pod, dat, _ = np.unravel_index(rank, dims)
+        assert got["n"] == 2 and got["shard"] == pod * dims[1] + dat
+        _bitwise(got["z"], ji.z, "z")
+        _bitwise(got["p"], ji.p, "p")
+        _bitwise(got["lam_hat"], ji.lam_hat, "lam_hat")
+        assert int(got["writes"]) == int(ji.writes)
+    perm = _perm(layout, keys, 2)
+    for model in range(dims[2]):
+        row = sorted((r for k, r in enumerate(runs)
+                      if np.unravel_index(k, dims)[2] == model),
+                     key=lambda r: r["shard"])
+        _state_equal(_full(row), perm, js, f"{shape} {layout}")
 
 
 @pytest.mark.parametrize("mode", ["exact", "fast"])
