@@ -8,7 +8,7 @@ It builds the port's four CUDA kernel sources from this checkout
 ``flash_attention_bwd``: one ``nvcc`` each for ``sm_90a``, all started
 together, into ``build/``), checks with ``cuobjdump`` that the bfloat16
 attention kernels (the forward, and the backward's dK/dV and dQ kernels)
-hold ``HGMMA`` (tensor-core) instructions, then runs twelve phases; any
+hold ``HGMMA`` (tensor-core) instructions, then runs thirteen phases; any
 failure raises (in a rank too) and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
@@ -28,8 +28,9 @@ failure raises (in a rank too) and the script exits non-zero.
    launch count must equal the block count of each run, and neither the
    plain uniforms nor the plain row gather may run on a CUDA tensor.
 3. Parity: exact mode (one keyed write-back launch per chunk) on a
-   262,144-event prefix on the card and on the CPU (decisions, state and
-   sink bytes identical); two fast-mode runs on the card (identical
+   262,144-event prefix on the card (the launches a chunk; phase 9's
+   reference), and on its first 65,536 events on the card and on the CPU
+   (decisions, state and sink bytes identical); two fast-mode runs on the card (identical
    state); one fast block from a shared state on the card and on the CPU
    (identical decisions, state within 1e-5 relative).
 4. Kernels of the serving path: ``decay_scan`` on the card bitwise against
@@ -212,6 +213,32 @@ failure raises (in a rank too) and the script exits non-zero.
    then Adafactor with a bfloat16 accumulator): launches a step equal to
    the plan's (a backward call counts once, the reduction of a split
    group included), a falling loss, s/step, tok/s, peak memory.
+13. Training under a mesh (after phase 12): (a) SmolLM-360M at full
+   width and depth (bfloat16, AdamW with float32 master weights) takes 3
+   steps on phase 12's batch (2 x 4096 tokens) on a ("data", "model") =
+   (2, 2) mesh of 4 gloo ranks sharing the card, its state placed by the
+   train rules (``launch.shardings.init_train_state``; 15 heads and 5 KV
+   heads replicate on "model", ff and vocab shard), the batch sharded
+   over "data"; (b) RecurrentGemma-2B at full width with one pattern
+   group (rec, rec, attn) the same way.  Each rank gathers every layer's
+   parameters and runs the model on its row with plain tensors, so
+   ``decay_scan`` and attention run whole on each rank and the "model"
+   axis repeats the compute.  Rank 0 then runs the same steps in one
+   process with the batch split as the data ranks split it (each row a
+   micro-batch: the witness) and whole.  Gates: every rank's launches
+   the plan's, its state on the card, its argument bytes equal to its
+   placements' count, the ranks' losses equal, and against the witness
+   the losses, every step's grad norm and the float32 masters' update
+   within ``MESH_LOSS_RTOL``, ``MESH_NORM_GAP`` and ``MESH_UPDATE_GAP``.
+   Then the kernels' ops on DTensors through their sharding rules on the
+   same 4 ranks: Qwen3-4B's attention with rows over "data" and heads
+   over "model" (16 query and 4 KV heads a rank), RecurrentGemma's
+   training scan with channels over both, forward and backward, each
+   rank's shard against its slice of the plain call on the card (bit for
+   bit, attention's dK/dV within ``SPLIT_ORDER_TOL`` where the split
+   count differs).  (c) SmolLM on a 1-rank NCCL (1, 1) mesh, bit for bit
+   one process's steps.  Collectives (``CommDebugMode``) and s/step are
+   printed.
 
 After phase 11 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
@@ -230,6 +257,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import re
 import subprocess
@@ -238,6 +266,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+# phase 13's gradient norms reduce leaves sharded over both mesh dims:
+# DTensor warns at each that it all-reduces one dim after the other
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -245,6 +277,7 @@ import torch  # noqa: E402
 POLICIES = ("pp", "pp_vr", "full", "fixed", "unfiltered")
 N_KEYS, N_EVENTS, BATCH = 800_000, 2_000_000, 4096
 PREFIX, EXACT_BATCH = 262_144, 1024
+PARITY_EVENTS = 65_536      # the exact run the CPU repeats (PREFIX took 65 s)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -374,6 +407,31 @@ TRAIN_BLOCK_CASES = [(ARCH, "rec", "decay_scan"),
                      (ARCH, "attn", "flash_attention"),
                      ("mamba2-2.7b", "ssd", "decay_scan")]
 # (label, arch, steps, TrainConfig overrides besides warmup_steps=1)
+# phase 13's bounds.  The witness is one process on the card that splits
+# the batch as the 2 data ranks do: each row a micro-batch
+# (``grad_accum`` 2), its bf16 gradient from the same kernels at the same
+# shapes as a rank's, the two halves summed in float32, where the mesh
+# sums them in bf16 (a reduce-scatter).  So every gradient entry differs
+# by at most one bf16 rounding, 2^-9 of its size, and the global grad
+# norm by at most 2^-9; doubled for the float32 sums' order and for step
+# 2's weights: MESH_NORM_GAP 2^-8.  The norm is the gate that sees a
+# gradient's size: clipping (norms of 30-90 against a clip of 1) and
+# Adam's m/sqrt(v) both cancel a gradient scaled by a constant, so a
+# wrong 1/n or token share moves the norm alone.  Losses: steps 0 and 1
+# run on the initial weights (step 0's lr is 0); each row's forward is
+# the same computation, and what differs is the grouping of the
+# per-token float32 sums: 1e-5 (measured 8.7e-8 and 9.8e-8 against the
+# whole batch).  Step 2's loss also moves with the updates' difference:
+# within 1e-5 + MESH_UPDATE_GAP x |step 1's loss - step 2's|.  The float32
+# masters' move after 3 steps (L2 of the difference over L2 of the
+# witness's move): step 1's update is Adam's m/sqrt(v) on twice the same
+# clipped gradient, ~sign(g), alike in both but where |g| nears eps
+# (within 2^-8 there); step 2's gradient comes from weights that close and
+# its update mixes in both earlier moments, each entry within ~2^-8:
+# MESH_UPDATE_GAP 2^-7.  The whole batch in one process (``grad_accum``
+# 1) is printed beside it: in bf16 it differs by far more (the
+# embedding's gradient, scripts/torch_bf16_split_grads.py).
+MESH_LOSS_RTOL, MESH_NORM_GAP, MESH_UPDATE_GAP = 1e-5, 2.0 ** -8, 2.0 ** -7
 TRAIN_RUNS = [("recurrentgemma", ARCH, 4, {}),
               ("smollm_adamw", "smollm-360m", 4, {}),
               ("smollm_adafactor", "smollm-360m", 2,
@@ -839,36 +897,38 @@ def phase_parity(device, stream):
                        alpha=1.0, exact_rounds=rounds)
     out = []
     reset_counts()
-    for dev in (device, torch.device("cpu")):
+    for dev, n in ((device, PREFIX), (device, PARITY_EVENTS),
+                   (torch.device("cpu"), PARITY_EVENTS)):
         sink = WriteBehindSink(cfg, n_partitions=4, device=dev)
         t0 = time.perf_counter()
         state, info = run_stream(cfg, init_state(N_KEYS, len(cfg.taus),
                                                  device=dev),
-                                 keys, qs, ts, batch=EXACT_BATCH,
+                                 keys[:n], qs[:n], ts[:n], batch=EXACT_BATCH,
                                  mode="exact", rng=prng_key(7), sink=sink)
         sink.flush()
         sink.close()
         out.append((state_to_numpy(state), [x.cpu() for x in info[:4]],
                     _store_bytes(sink), time.perf_counter() - t0,
                     int(info.writes)))
-        if dev == device:
+        if not out[1:]:
             check_no_plain_steps("exact mode")
             launched = trmw.keyed_launches
-    (gs, gi, gb, gt, gw), (cs, ci, cb, ct, _) = out
+    (gs, gi, gb, gt, gw), (ps, pi, pb, pt, _), (cs, ci, cb, ct, _) = out
     n_chunks = PREFIX // EXACT_BATCH * (-(-EXACT_BATCH // 256) + rounds)
     check(launched == n_chunks,
           f"exact mode: {launched} keyed launches for {n_chunks} chunks")
-    for name, a, b in zip(("z", "p", "lam_hat", "features"), gi, ci):
+    for name, a, b in zip(("z", "p", "lam_hat", "features"), pi, ci):
         check(bitwise_equal(a, b), f"exact {name}: cuda != cpu")
-    for name, a, b in zip(gs._fields, gs, cs):
+    for name, a, b in zip(ps._fields, ps, cs):
         check(np.array_equal(a.view(np.uint8), b.view(np.uint8)),
               f"exact state {name}: cuda != cpu")
-    check(gb == cb and len(gb) > 0, "exact sink bytes: cuda != cpu")
+    check(pb == cb and len(pb) > 0, "exact sink bytes: cuda != cpu")
     emit(parity_exact={"events": PREFIX, "batch": EXACT_BATCH,
                        "exact_rounds": rounds, "policy": "pp_vr",
                        "keyed_write_back_launches": launched,
                        "writes": gw, "rows_stored": len(gb),
-                       "bitwise": True, "cuda_s": gt, "cpu_s": ct})
+                       "cuda_s": gt, "cpu_parity_events": PARITY_EVENTS,
+                       "bitwise": True, "parity_cuda_s": pt, "cpu_s": ct})
     exact_ref = (gs, gi, gb)      # phase 9 (b) and (f) hold to the card's
 
     # fast mode: two runs on the card give identical state
@@ -3387,10 +3447,394 @@ def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
 
 
 def new_path_launches(family_launches, kernel) -> dict:
-    """Phase 10's and 11's launch counts of ``kernel``, by model, where it
-    ran."""
+    """Phase 10's, 11's or 13's launch counts of ``kernel``, by model or
+    run, where it ran."""
     return {arch: n[kernel] for arch, n in family_launches.items()
             if n[kernel]}
+
+
+# ---------------------------------------- phase 13: training under a mesh
+# (label, arch, layers kept (None: all), TrainConfig overrides besides
+# warmup_steps=1): SmolLM-360M at full width and depth, and
+# RecurrentGemma-2B at full width with one pattern group (rec, rec, attn)
+# and micro-batches of the whole batch (its grad_accum of 2 would leave one
+# row a micro-batch, which 2 data ranks do not divide: the rules would
+# replicate it)
+MESH_RUNS = [("smollm", "smollm-360m", None, {}),
+             ("recurrentgemma_1group", ARCH, 3, {"grad_accum": 1})]
+MESH_SHAPE, MESH_STEPS, MESH_SEED = (2, 2), 3, 13
+MESH_TIMEOUT_S = 900.0
+
+
+def mesh_run(arch, layers, overrides):
+    import dataclasses as dc
+
+    from repro_torch.configs.base import load_config
+    run = load_config(arch)
+    run = dc.replace(run, train=dc.replace(run.train, warmup_steps=1,
+                                            **overrides))
+    if layers is not None:
+        run = dc.replace(run, model=dc.replace(run.model, num_layers=layers))
+    return run
+
+
+def placement_bytes(tree) -> int:
+    """A rank's bytes of a DTensor tree as its placements count them:
+    each leaf's elements over the sizes of the mesh dims that shard it."""
+    from repro_torch.models.common import tree_leaves
+    total = 0
+    for x in tree_leaves(tree):
+        n = x.numel()
+        for i, pl in enumerate(x.placements):
+            if pl.is_shard():
+                n //= x.device_mesh.size(i)
+        total += n * x.element_size()
+    return total
+
+
+def _mesh_counts():
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    return {"decay_scan": ds.launches, "decay_scan_bwd": ds.bwd_launches,
+            "flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches}
+
+
+def _reset_mesh_counts():
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    ds.launches = ds.bwd_launches = fa.launches = fa.bwd_launches = 0
+
+
+def _steps_one_process(run, device, data):
+    """``MESH_STEPS`` single-process steps from ``MESH_SEED``'s weights:
+    (losses, grad norms, the float32 masters after, the masters before)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import trainer
+
+    state = trainer.init_train_state(
+        run, torch.Generator(device=device).manual_seed(MESH_SEED),
+        device=device)
+    before = [m.detach().clone() for m in tree_leaves(state.master)]
+    step = trainer.make_train_step(run, total_steps=MESH_STEPS)
+    losses, norms = [], []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, data)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, [m.detach() for m in tree_leaves(state.master)], \
+        before
+
+
+def _steps_on_mesh(run, device, data, mesh):
+    """``MESH_STEPS`` steps of ``run`` with the state and batch placed on
+    ``mesh`` by the train rules, the kernel counts set to 0 just before
+    and read just after.  Returns (record, the masters gathered whole)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import shardings
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import trainer
+
+    with dctx.mesh_context(mesh, sharding.make_rules(fsdp=True)):
+        state = shardings.init_train_state(
+            run, torch.Generator(device=device).manual_seed(MESH_SEED),
+            mesh, device)
+        _p11_sync(device)
+        batch = shardings.distribute_batch(data, run, mesh)
+        sharded = (state.params, state.master, state.opt, state.sync,
+                   batch)          # every argument but the step counter
+        args = shardings.argument_bytes(*sharded)
+        placed = placement_bytes(sharded)
+        step = trainer.make_train_step(run, total_steps=MESH_STEPS)
+        losses, norms, step_s = [], [], []
+        comm = CommDebugMode()
+        _p11_sync(device)
+        _reset_mesh_counts()
+        with comm:
+            for _ in range(MESH_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                _p11_sync(device)
+                step_s.append(time.perf_counter() - t0)
+        launches = _mesh_counts()
+        masters = [collectives.whole(m).detach() for m in
+                   tree_leaves(state.master)]
+        on_card = all(x.to_local().device == device
+                      for x in tree_leaves(state.params))
+    rec = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+           "launches": launches,
+           "plan": {k: MESH_STEPS * v for k, v in
+                    train_launches(run).items()},
+           "argument_bytes": args, "placement_bytes": placed,
+           "collectives": {str(k): v for k, v in
+                           comm.get_comm_counts().items()},
+           "on_card": on_card}
+    return rec, masters
+
+
+def _update_gap(got, want, before) -> float:
+    """L2 of the two runs' masters' difference over L2 of the single
+    process's move."""
+    num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+              for a, b in zip(got, want))
+    den = sum(float(torch.sum((b.double() - c.double()) ** 2))
+              for b, c in zip(want, before))
+    return (num / den) ** 0.5
+
+
+# the kernels' ops on DTensors: Qwen3-4B's attention (2 rows, 32 query and
+# 8 KV heads, D 128, 4096 tokens, causal) with its rows over "data" and
+# its heads over "model", and RecurrentGemma-2B's training scan [4096, 2560]
+# with its channels over both; each rank's shard held against its slice
+# of the plain call on whole tensors on the card.  A rank computes its own
+# rows, heads or channels whole, so every result is bit for bit the same
+# but attention's dK/dV where the rank's shorter grid splits a KV head's
+# query-head group over more blocks than the whole call does
+# (``flash_attention.bwd_splits``): its float32 partial sums then add in
+# another order before one bfloat16 rounding, so each entry moves by at
+# most a bfloat16 ulp, at most 2^-7 of its size: normwise (the largest
+# difference over the largest entry) at most 2^-7.
+SHARDED_ATTN = (2, 32, 8, TRAIN_SEQ, 128)
+SHARDED_SCAN = (TRAIN_SEQ, 2560)
+SPLIT_ORDER_TOL = 2.0 ** -7
+
+
+def _sharded_ops(mesh, device) -> dict:
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+    B, H, Kh, S, D = SHARDED_ATTN
+    q, do = (torch.randn(B, H, S, D, generator=gen, device=device,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, Kh, S, D, generator=gen, device=device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    T, C = SHARDED_SCAN
+    a = torch.rand(T, C, generator=gen, device=device)
+    u, dh = (torch.randn(T, C, generator=gen, device=device)
+             for _ in range(2))
+
+    def run(attn, scan, do, dh):
+        o = ops.flash_attention(*attn, causal=True)
+        o.backward(do)
+        h = ops.decay_scan(*scan)
+        h.backward(dh)
+        return [o.detach(), h.detach()] + [x.grad for x in attn + scan]
+
+    leaves = lambda *xs: [x.clone().requires_grad_(True) for x in xs]
+    want = run(leaves(q, k, v), leaves(a, u), do, dh)
+    attn_pl, scan_pl = [Shard(0), Shard(1)], [Shard(1), Shard(1)]
+
+    def put(x, pl, grad=True):
+        d = distribute_tensor(x, mesh, pl, src_data_rank=None)
+        return d.requires_grad_(True) if grad else d
+
+    _reset_mesh_counts()
+    got = run([put(x, attn_pl) for x in (q, k, v)],
+              [put(x, scan_pl) for x in (a, u)], put(do, attn_pl, False),
+              put(dh, scan_pl, False))
+    launched = _mesh_counts()
+    pls = [attn_pl, scan_pl, attn_pl, attn_pl, attn_pl, scan_pl, scan_pl]
+    names = ["o", "h", "dq", "dk", "dv", "da", "du"]
+    splits = [fa.bwd_splits(q, k), fa.bwd_splits(q[:1, :H // 2],
+                                                 k[:1, :Kh // 2])] \
+        if device.type == "cuda" else [1, 1]
+    errs, same = {}, {}
+    for name, g, w, pl in zip(names, got, want, pls):
+        mine = distribute_tensor(w, mesh, pl, src_data_rank=None).to_local()
+        same[name] = bool(torch.equal(g.to_local(), mine))
+        errs[name] = normwise(g.to_local(), mine)
+        check(list(g.placements) == pl,
+              f"(13 ops) {name} came back as {g.placements}, not {pl}")
+    return {"bitwise": same, "normwise": errs, "splits": splits,
+            "launches": launched,
+            "local_attention": list(got[0].to_local().shape),
+            "local_scan": list(got[1].to_local().shape)}
+
+
+def phase13_rank(mesh, p):
+    """(a), (b) on each of 4 gloo ranks sharing the card: the runs on the
+    ("data", "model") = (2, 2) mesh over the ranks' group; rank 0 then
+    runs the same steps in one process, with the batch split as the data
+    ranks split it (the witness) and whole, and compares.  Then the
+    kernels' ops on DTensors sharded over the mesh."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import synthetic_batch
+
+    device = torch.device(p["device"])
+    m2 = make_mesh(MESH_SHAPE, ("data", "model"), device_type=device.type)
+    out = {}
+    for label, arch, layers, overrides in MESH_RUNS:
+        run = mesh_run(arch, layers, overrides)
+        data = synthetic_batch(run.model, np.random.default_rng(MESH_SEED),
+                               TRAIN_BATCH, TRAIN_SEQ, device)
+        rec, masters = _steps_on_mesh(run, device, data, m2)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            for key, accum in (("split", MESH_SHAPE[0]), ("whole", 1)):
+                one = dc.replace(run, train=dc.replace(run.train,
+                                                       grad_accum=accum))
+                losses, norms, want, before = _steps_one_process(
+                    one, device, data)
+                rec[key] = {"losses": losses, "grad_norms": norms,
+                            "update_gap": _update_gap(masters, want,
+                                                      before)}
+                del want, before
+        del masters
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out[label] = rec
+    out["sharded_ops"] = _sharded_ops(m2, device)
+    return out
+
+
+def phase13_nccl_rank(mesh, p):
+    """(c) on one NCCL rank: SmolLM's steps on a (1, 1) mesh, equal to the
+    same steps in one process bit for bit (a one-rank group's collectives
+    copy, the loss's share is 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import synthetic_batch
+
+    device = torch.device(p["device"])
+    check(dist.get_backend() == ("nccl" if device.type == "cuda" else
+                                 "gloo"), "(c): not an NCCL group")
+    m1 = make_mesh((1, 1), ("data", "model"), device_type=device.type)
+    run = mesh_run("smollm-360m", None, {})
+    data = synthetic_batch(run.model, np.random.default_rng(MESH_SEED),
+                           TRAIN_BATCH, TRAIN_SEQ, device)
+    rec, masters = _steps_on_mesh(run, device, data, m1)
+    losses, norms, want, before = _steps_one_process(run, device, data)
+    rec["bitwise"] = bool(losses == rec["losses"] and norms ==
+                          rec["grad_norms"] and all(
+                              torch.equal(a, b) for a, b in
+                              zip(masters, want)))
+    rec["update_gap"] = _update_gap(masters, want, before)
+    return rec
+
+
+def _rel(a, b) -> float:
+    return abs(a / b - 1)
+
+
+def phase_mesh_train(device):
+    """Phase 13: training under a mesh.  (a) SmolLM-360M at full width and
+    depth, bf16 with a float32 master copy, AdamW, 3 steps on phase 12's
+    batch (2 x 4096 tokens) on a ("data", "model") = (2, 2) mesh of 4
+    gloo ranks sharing the card, with the train rules (SmolLM's 15 heads
+    and 5 KV heads replicate on "model", its ff and vocab dims shard);
+    (b) RecurrentGemma-2B at full width, one pattern group, the same way.
+    Each rank runs the model on its data row with every layer's parameters
+    gathered (the "model" axis shards the state and repeats the compute);
+    so the kernels' sharding rules are driven apart: attention's rows over
+    "data" and heads over "model", the scan's channels over both, against
+    the plain calls (``_sharded_ops``).  (c) SmolLM on a 1-rank NCCL (1, 1)
+    mesh, bitwise equal to one process.  Gates: the launches the plan's on
+    every rank, the state on the card, each rank's argument bytes equal to
+    its placements' count, the ranks' losses equal, and against the
+    witness (one process, the batch split as the data ranks split it) the
+    losses, every step's grad norm and the masters' update within
+    MESH_LOSS_RTOL, MESH_NORM_GAP and MESH_UPDATE_GAP; the sharded ops as
+    ``SHARDED_ATTN``'s comment says; (c) bit for bit."""
+    from repro_torch.distributed.spawn import run_ranks
+
+    dev = str(device) if device.type != "cuda" \
+        else f"cuda:{device.index or 0}"
+    card = card_name_and_limit()
+    t0 = time.time()
+    ranks = run_ranks(phase13_rank, 4, {"device": dev}, backend="gloo",
+                      device=dev, timeout_s=MESH_TIMEOUT_S)
+    gloo_s = time.time() - t0
+    out = {}
+    for label, arch, layers, overrides in MESH_RUNS:
+        recs = [r[label] for r in ranks]
+        head = recs[0]
+        for i, r in enumerate(recs):
+            check(r["launches"] == r["plan"],
+                  f"(13 {label}) rank {i}: launches {r['launches']}, plan "
+                  f"{r['plan']}")
+            check(r["argument_bytes"] == r["placement_bytes"],
+                  f"(13 {label}) rank {i}: argument bytes "
+                  f"{r['argument_bytes']} != placements' "
+                  f"{r['placement_bytes']}")
+            check(r["on_card"], f"(13 {label}) rank {i}: state off the card")
+            check(r["losses"] == head["losses"],
+                  f"(13 {label}): ranks disagree on the loss")
+        split = head["split"]
+        got, want = head["losses"], split["losses"]
+        loss_limit = [MESH_LOSS_RTOL] * 2 + [
+            MESH_LOSS_RTOL + MESH_UPDATE_GAP * abs(want[1] - want[2])
+            / abs(want[2])]
+        loss_gap = [_rel(a, b) for a, b in zip(got, want)]
+        norm_gap = [_rel(a, b) for a, b in
+                    zip(head["grad_norms"], split["grad_norms"])]
+        check(all(np.isfinite(got + head["grad_norms"])),
+              f"(13 {label}): non-finite loss or grad norm")
+        check(all(g <= lim for g, lim in zip(loss_gap, loss_limit)),
+              f"(13 {label}): losses {got} vs the witness {want} "
+              f"(limits {loss_limit})")
+        check(max(norm_gap) <= MESH_NORM_GAP,
+              f"(13 {label}): grad norms {head['grad_norms']} vs the "
+              f"witness {split['grad_norms']}")
+        check(split["update_gap"] <= MESH_UPDATE_GAP,
+              f"(13 {label}): update gap {split['update_gap']}")
+        out[label] = {"arch": arch, "layers": layers, **overrides,
+                      "mesh": list(MESH_SHAPE), "ranks": 4,
+                      "backend": "gloo", "loss_gap": loss_gap,
+                      "loss_limit": loss_limit, "norm_gap": norm_gap,
+                      "by_rank_argument_bytes": [r["argument_bytes"]
+                                                 for r in recs],
+                      "by_rank_step_s": [r["step_s"] for r in recs],
+                      **{k: head[k] for k in
+                         ("losses", "grad_norms", "split", "whole",
+                          "launches", "plan", "placement_bytes",
+                          "collectives")}}
+    ops_recs = [r["sharded_ops"] for r in ranks]
+    for i, r in enumerate(ops_recs):
+        check(all(n == 1 for n in r["launches"].values()),
+              f"(13 ops) rank {i}: launches on DTensors {r['launches']}, "
+              f"not one of each kernel")
+        same_split = r["splits"][0] == r["splits"][1]
+        for name, err in r["normwise"].items():
+            exact = same_split or name not in ("dk", "dv")
+            check(r["bitwise"][name] if exact else err <= SPLIT_ORDER_TOL,
+                  f"(13 ops) rank {i}: {name} off the plain call by {err} "
+                  f"(splits {r['splits']})")
+    out["sharded_ops"] = {"attention": list(SHARDED_ATTN),
+                          "scan": list(SHARDED_SCAN), "by_rank": ops_recs}
+    t0 = time.time()
+    (nc,) = run_ranks(phase13_nccl_rank, 1, {"device": dev},
+                      backend="nccl" if device.type == "cuda" else "gloo",
+                      device=dev, timeout_s=MESH_TIMEOUT_S)
+    nccl_s = time.time() - t0
+    check(nc["bitwise"], f"(13 c): the (1, 1) NCCL mesh's steps differ "
+          f"from one process (update gap {nc['update_gap']})")
+    check(nc["launches"] == nc["plan"], f"(13 c): launches "
+          f"{nc['launches']}, plan {nc['plan']}")
+    check(nc["argument_bytes"] == nc["placement_bytes"],
+          "(13 c): argument bytes != placements'")
+    out["nccl_1x1"] = {k: nc[k] for k in
+                       ("losses", "grad_norms", "bitwise", "update_gap",
+                        "launches", "plan", "argument_bytes",
+                        "collectives", "step_s")}
+    emit(mesh_train={**out, "gloo_phase_s": gloo_s, "nccl_phase_s": nccl_s,
+                     "card": card})
+    return {**{label: out[label]["launches"] for label, *_ in MESH_RUNS},
+            "nccl_1x1": nc["launches"]}
 
 
 def main() -> int:
@@ -3441,6 +3885,9 @@ def main() -> int:
     phase_train_blocks(device)
     train_runs = phase_train(device)
     emit(train_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh_train(device)
+    emit(mesh_train_phase_s=time.perf_counter() - t0)
     backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
     dense_backends = sdpa_dense_backends(device)
     emit(sdpa_backends=backends, sdpa_dense_backends=dense_backends)
@@ -3485,6 +3932,7 @@ def main() -> int:
             serving_times["decay_scan"], bitwise_vs_plain_card=True,
             launches_families=new_path_launches(family_launches,
                                                 "decay_scan"),
+            launches_mesh=new_path_launches(mesh_launches, "decay_scan"),
             families=serving_times["decay_scan"]["mamba2-2.7b"]),
         serving_kernel_entry(
             "flash_attention", "src/repro/kernels/flash_attention.py:37",
@@ -3496,11 +3944,16 @@ def main() -> int:
             library_backend_batch2=backends[SERVE_BATCH]["default"],
             launches_families=new_path_launches(family_launches,
                                                 "flash_attention"),
+            launches_mesh=new_path_launches(mesh_launches,
+                                            "flash_attention"),
             families={arch: {**serving_times["flash_attention"][arch],
                              "library_backend": dense_backends[arch][
                                  "default"]}
                       for arch, *_ in model_attention_shapes()}),
-        *train_kernel_entries(train_worst, train_times, train_runs)])
+        *({**e, "launches_mesh": new_path_launches(mesh_launches,
+                                                    e["name"])}
+          for e in train_kernel_entries(train_worst, train_times,
+                                        train_runs))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -187,13 +187,58 @@ def gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _recv(torch.cat(_all_gather(x, group), dim=dim), x)
 
 
-def mean_over(x: torch.Tensor, groups) -> torch.Tensor:
-    """``x`` averaged over the ranks of the product of ``groups`` (summed
-    over each group in turn: the JAX ``lax.pmean`` over several axes)."""
+def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed over the ranks of the product of ``groups`` (over each
+    group in turn)."""
     xs = _send(x, groups[0]).clone()
-    n = 1
     for g in groups:
         xs = _send(xs, g)
         dist.all_reduce(xs, op=dist.ReduceOp.SUM, group=g)
+    return _recv(xs, x)
+
+
+def mean_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` averaged over the ranks of the product of ``groups`` (summed
+    over each group in turn: the JAX ``lax.pmean`` over several axes)."""
+    n = 1
+    for g in groups:
         n *= dist.get_world_size(g)
-    return _recv(xs, x) / n
+    return sum_over(x, groups) / n
+
+
+def _host_twin(mesh):
+    """The CPU twin of a CUDA mesh whose groups run gloo (made once, kept
+    on the mesh); None for any other mesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if mesh.device_type != "cuda" or dist.get_backend(
+            mesh.get_group(0)) != "gloo":
+        return None
+    twin = mesh.__dict__.get("_host_twin")
+    if twin is None:
+        twin = DeviceMesh("cpu", mesh.mesh,
+                          mesh_dim_names=mesh.mesh_dim_names)
+        mesh.__dict__["_host_twin"] = twin
+    return twin
+
+
+def _on_host(x, twin):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().cpu(), twin, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def whole(x) -> torch.Tensor:
+    """A DTensor's whole value on every rank (``full_tensor``: shards
+    gathered, partial sums reduced), as a plain tensor.
+
+    Under gloo with CUDA tensors the collective is staged through the
+    host, over a CPU twin of the mesh: there the functional all-gather
+    that ``full_tensor`` issues kills the rank (SIGSEGV; torch 2.11 +
+    CUDA 12.8 on an H100), while the host's works.  DTensor's other
+    redistributions (reduce-scatter, all-reduce, local chunks) run on the
+    card under gloo as they are."""
+    twin = _host_twin(x.device_mesh)
+    if twin is None:
+        return x.full_tensor()
+    return _on_host(x, twin).full_tensor().to(x.to_local().device)

@@ -16,8 +16,10 @@ bitwise parity, and n ranks on a shared host should not each spread over
 every core.
 
 When a rank fails (an exception, a signal) or the deadline passes, every
-rank is killed and ``run_ranks`` raises with the failed rank's traceback;
-no process outlives the call.  ``torchrun --nproc-per-node n`` is the
+rank is killed and ``run_ranks`` raises with the failed ranks' tracebacks
+and exit codes (after a failure the ranks get ``FAILURE_GRACE_S`` to
+report or exit, so the peers a dead rank takes down do not hide it); no
+process outlives the call.  ``torchrun --nproc-per-node n`` is the
 other way to start the ranks: each then calls ``make_shard_mesh()``.
 """
 from __future__ import annotations
@@ -32,6 +34,8 @@ import traceback
 from typing import Any, Callable, List, Optional
 
 __all__ = ["run_ranks", "RankFailed"]
+
+FAILURE_GRACE_S = 1.0
 
 
 class RankFailed(RuntimeError):
@@ -131,7 +135,15 @@ def run_ranks(fn: Callable[..., Any], n: int, *args, backend: Optional[str]
             while True:
                 failed = _failure(procs, out_dir)
                 if failed is not None:
-                    raise RankFailed(failed, [p.pid for p in procs])
+                    # a rank that dies takes its peers' collectives down
+                    # with it: give every rank a moment to report or exit
+                    # (the parent sees an exit only once it reaps it), so
+                    # the report names every failed rank
+                    grace = time.monotonic() + FAILURE_GRACE_S
+                    for p in procs:
+                        p.join(max(0.0, grace - time.monotonic()))
+                    raise RankFailed(_failure(procs, out_dir),
+                                     [p.pid for p in procs])
                 alive = [p for p in procs if p.exitcode is None]
                 if not alive:
                     break

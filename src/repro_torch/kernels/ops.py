@@ -35,6 +35,8 @@ Two contracts every caller of ``thinning_rmw`` inherits from the reference:
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import decay_scan as _ds
@@ -108,12 +110,25 @@ def thinning_rmw_keyed(taus, state, key, q, t, valid, rng, ent=None, *,
                      f"{key.device}")
 
 
-def _wants_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in tensors)
+# ------------------------------------------------- custom ops (torch.library)
+# decay_scan and flash_attention, forward and backward, are registered as
+# ``torch.library`` custom ops, so that the rest of torch sees each kernel
+# as one opaque operation: ``register_fake`` gives its output shapes
+# (FakeTensorMode: the dry-run runs the real step with no storage), a FLOP
+# formula counts its work (``torch.utils.flop_counter``), and a sharding
+# rule lets it take DTensors (``register_sharding``): attention is
+# shardable over batch and heads (each rank's keys are its own), the scan
+# over channels.  Each op's body dispatches on the tensors' device, as
+# before: the CUDA kernel on the card, the plain version on the CPU.  No
+# step of the port hands these ops DTensors yet: the train and serve steps
+# run the model on gathered plain tensors, so the sharding rules act only
+# where a caller shards the ops' inputs itself (``chip_smoke.py`` phase 13
+# and the tests hold them against the plain calls).
+from torch import Tensor                                    # noqa: E402
 
 
-def _scan_forward(a, u, h0):
+@torch.library.custom_op("repro_torch::decay_scan", mutates_args=())
+def _decay_scan_op(a: Tensor, u: Tensor, h0: Optional[Tensor]) -> Tensor:
     if a.device.type == "cuda":
         return _ds.decay_scan_cuda(a, u, h0)
     if a.device.type == "cpu":
@@ -122,22 +137,179 @@ def _scan_forward(a, u, h0):
     raise ValueError(f"decay_scan has no implementation for {a.device}")
 
 
+@_decay_scan_op.register_fake
+def _(a, u, h0):
+    return torch.empty_like(a)
+
+
+@torch.library.custom_op("repro_torch::decay_scan_bwd", mutates_args=())
+def _decay_scan_bwd_op(a: Tensor, h: Tensor, g: Tensor,
+                       h0: Optional[Tensor]) -> Tuple[Tensor, Tensor,
+                                                      Tensor]:
+    """(da, du, dh0); dh0 is empty [0] without ``h0``."""
+    if a.device.type == "cuda":
+        da, du, dh0 = _ds.decay_scan_bwd_cuda(a, h, g, h0)
+    else:
+        da, du, dh0 = ref.decay_scan_bwd_ref(a, h, g, h0)
+    return da, du, dh0 if dh0 is not None else a.new_empty(0)
+
+
+@_decay_scan_bwd_op.register_fake
+def _(a, h, g, h0):
+    return (torch.empty_like(a), torch.empty_like(a),
+            torch.empty_like(h0) if h0 is not None else a.new_empty(0))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                        window: int, softcap: float,
+                        return_lse: bool) -> Tuple[Tensor, Tensor]:
+    """(out [B, H, Sq, D], the rows' log-sum-exp [B, H, Sq] float32, or
+    [B, H, 0] without ``return_lse``)."""
+    if q.device.type == "cuda":
+        out = _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window, softcap=softcap,
+                                       return_lse=return_lse)
+    elif q.device.type == "cpu":
+        _fa.check_args(q, k, v, window=window, softcap=softcap)
+        out = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                softcap=softcap, return_lse=return_lse)
+    else:
+        raise ValueError(f"flash_attention has no implementation for "
+                         f"{q.device}")
+    if return_lse:
+        return out
+    return out, q.new_empty(q.shape[:2] + (0,), dtype=torch.float32)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, softcap, return_lse):
+    B, H, Sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (B, H, Sq if return_lse else 0), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                            lse: Tensor, do: Tensor, causal: bool,
+                            window: int, softcap: float
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cuda":
+        return tuple(_fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
+    return tuple(ref.attention_bwd_ref(q, k, v, o, lse, do, **kw))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a mask keeps: query i (aligned to the last
+    keys) sees keys j <= i + Skv - Sq when causal, and the last ``window``
+    of them when windowed."""
+    if not causal and window <= 0:
+        return Sq * Skv
+    import numpy as np
+    end = np.arange(Sq, dtype=np.int64) + (Skv - Sq) + 1   # past the last
+    hi = np.minimum(Skv, end) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, end - window) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def _attention_flops(q_shape, k_shape, causal, window, products: int):
+    B, H, Sq, D = q_shape
+    return 2 * products * B * H * D * attended_pairs(Sq, k_shape[2], causal,
+                                                     window)
+
+
+def _register_analysis() -> None:
+    """FLOP formulas and DTensor sharding rules for the four ops (both
+    APIs exist in the torch versions the port runs on)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    from torch.utils.flop_counter import register_flop_formula
+
+    ops = torch.ops.repro_torch
+
+    @register_flop_formula(ops.flash_attention)
+    def _(q, k, v, causal, window, softcap, return_lse, *a, **kw):
+        return _attention_flops(q, k, causal, window, 2)   # Q K^T, P V
+
+    @register_flop_formula(ops.flash_attention_bwd)
+    def _(q, k, v, o, lse, do, causal, window, softcap, *a, **kw):
+        # S = Q K^T again, dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q
+        return _attention_flops(q, k, causal, window, 5)
+
+    @register_flop_formula(ops.decay_scan)
+    def _(a, u, h0, *args, **kw):
+        return 2 * a[0] * a[1]                 # a h + u a step a channel
+
+    @register_flop_formula(ops.decay_scan_bwd)
+    def _(a, h, g, h0, *args, **kw):
+        return 3 * a[0] * a[1]                 # the carry's a c + g, da
+
+    @register_sharding(ops.flash_attention.default)
+    def _(q, k, v, causal, window, softcap, return_lse):
+        scalars = [None] * 4
+        out = [([Replicate(), Replicate()],
+                [Replicate(), Replicate(), Replicate()] + scalars)]
+        # batch, and heads (a query head's KV head stays on its rank when
+        # both head counts divide over the mesh dim)
+        for d in (0, 1):
+            out.append(([Shard(d), Shard(d)],
+                        [Shard(d), Shard(d), Shard(d)] + scalars))
+        return out
+
+    @register_sharding(ops.flash_attention_bwd.default)
+    def _(q, k, v, o, lse, do, causal, window, softcap):
+        scalars = [None] * 3
+        out = [([Replicate()] * 3, [Replicate()] * 6 + scalars)]
+        for d in (0, 1):
+            out.append(([Shard(d)] * 3, [Shard(d)] * 6 + scalars))
+        return out
+
+    @register_sharding(ops.decay_scan.default)
+    def _(a, u, h0):
+        rep = ([Replicate()], [Replicate(), Replicate(),
+                               Replicate() if h0 is not None else None])
+        chan = ([Shard(1)], [Shard(1), Shard(1),
+                             Shard(0) if h0 is not None else None])
+        return [rep, chan]
+
+    @register_sharding(ops.decay_scan_bwd.default)
+    def _(a, h, g, h0):
+        has = h0 is not None
+        rep = ([Replicate()] * 3, [Replicate()] * 3
+               + [Replicate() if has else None])
+        chan = ([Shard(1), Shard(1), Shard(0) if has else Replicate()],
+                [Shard(1)] * 3 + [Shard(0) if has else None])
+        return [rep, chan]
+
+
+_register_analysis()
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
 class _DecayScan(torch.autograd.Function):
     """``decay_scan`` with its backward kernel (plain loop on the CPU)."""
 
     @staticmethod
     def forward(ctx, a, u, h0):
-        h = _scan_forward(a, u, h0)
+        h = _decay_scan_op(a, u, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
     @staticmethod
     def backward(ctx, g):
         a, h, h0 = ctx.saved_tensors
-        g = g.contiguous()
-        if a.device.type == "cuda":
-            return _ds.decay_scan_bwd_cuda(a, h, g, h0)
-        return ref.decay_scan_bwd_ref(a, h, g, h0)
+        da, du, dh0 = _decay_scan_bwd_op(a, h, g.contiguous(), h0)
+        return da, du, dh0 if h0 is not None else None
 
 
 def decay_scan(a, u, h0=None):
@@ -145,20 +317,7 @@ def decay_scan(a, u, h0=None):
     Differentiable in a, u and h0."""
     if _wants_grad(a, u, h0):
         return _DecayScan.apply(a, u, h0)
-    return _scan_forward(a, u, h0)
-
-
-def _attention_forward(q, k, v, causal, window, softcap, return_lse):
-    if q.device.type == "cuda":
-        return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, softcap=softcap,
-                                        return_lse=return_lse)
-    if q.device.type == "cpu":
-        _fa.check_args(q, k, v, window=window, softcap=softcap)
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, return_lse=return_lse)
-    raise ValueError(f"flash_attention has no implementation for "
-                     f"{q.device}")
+    return _decay_scan_op(a, u, h0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -167,20 +326,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        out, lse = _attention_forward(q, k, v, causal, window, softcap, True)
+        out, lse = _flash_attention_op(q, k, v, causal, window, softcap,
+                                       True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = dict(causal=causal, window=window, softcap=softcap)
+        ctx.masks = (causal, window, softcap)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        if q.device.type == "cuda":
-            grads = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
-                                                 **ctx.masks)
-        else:
-            grads = ref.attention_bwd_ref(q, k, v, out, lse, do, **ctx.masks)
+        grads = _flash_attention_bwd_op(q, k, v, out, lse, do.contiguous(),
+                                        *ctx.masks)
         return (*grads, None, None, None)
 
 
@@ -190,4 +346,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bfloat16).  Differentiable in q, k and v."""
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
-    return _attention_forward(q, k, v, causal, window, softcap, False)
+    return _flash_attention_op(q, k, v, causal, window, softcap, False)[0]

@@ -1,14 +1,22 @@
-"""Process meshes (PyTorch): the sharded feature engine's data mesh and
-the model mesh of the expert-parallel MoE.
+"""Process meshes (PyTorch): the production meshes of the dry-run and of
+training, the sharded feature engine's data mesh and the model mesh of the
+expert-parallel MoE.
 
-The counterpart of ``repro.launch.mesh`` for two of its meshes:
-``make_shard_mesh`` is what ``jax.make_mesh((n,), ("data",))`` is to the
-JAX engine, and ``make_model_mesh`` what ``jax.make_mesh((data, model),
-("data", "model"))`` is to the JAX ``moe_ep`` (the dry-run's LM meshes and
-their sharding rules are not ported).  Each process is one device of the
-mesh — a rank of a ``torch.distributed`` process group — and the mesh is
-a ``torch.distributed.device_mesh.DeviceMesh`` over the group's ranks with
-the JAX dim names.
+The counterpart of ``repro.launch.mesh``: ``make_production_mesh`` builds
+the reference's (16, 16) ``("data", "model")`` and (2, 16, 16) ``("pod",
+"data", "model")`` meshes, so that every sharding rule resolves as it does
+in JAX; ``make_shard_mesh`` is what ``jax.make_mesh((n,), ("data",))`` is to
+the JAX engine, and ``make_model_mesh`` what ``jax.make_mesh((data,
+model), ("data", "model"))`` is to the JAX ``moe_ep``.  Each process is one
+device of the mesh — a rank of a ``torch.distributed`` process group — and
+the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the
+group's ranks with the JAX dim names, rank ``i`` at the row-major position
+``i`` as ``jax.make_mesh`` lays devices out.
+
+Topology: on H100 nodes of 8 GPUs joined by NVLink, a 16-wide ``model``
+dim spans two NVLink domains, so half of every tensor-parallel collective
+crosses the nodes' network; the reference placed ``model`` on the TPU's
+fast ring.  No H100-shaped mesh is defined: the reference has none.
 
 The group is built *before* the mesh, with the backend the caller means:
 ``DeviceMesh`` would otherwise pick NCCL for CUDA, which refuses two ranks
@@ -26,7 +34,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["make_shard_mesh", "make_model_mesh", "shard_of_mesh",
-           "DATA_AXIS", "MODEL_AXIS"]
+           "make_mesh", "make_production_mesh", "make_mesh_named",
+           "mesh_axis_sizes", "DATA_AXIS", "MODEL_AXIS"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -209,3 +218,51 @@ def shard_of_mesh(mesh, data_axes: Tuple[str, ...] = (DATA_AXIS,)
                     cache[tuple(dims)] = g
     group = cache[tuple(dims)]
     return n, shard, group
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+              device_type: Optional[str] = None) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default process
+    group that the caller built (gloo or NCCL for a run, the fake backend
+    for the dry-run), rank ``i`` at row-major position ``i``.
+    ``device_type`` defaults to ``"cuda"`` where a card is present, else
+    ``"cpu"``."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh builds on the default process group: "
+                           "call torch.distributed.init_process_group "
+                           "(or make_shard_mesh) first")
+    world = 1
+    for n in shape:
+        world *= int(n)
+    if world != dist.get_world_size():
+        raise ValueError(f"a {tuple(shape)} mesh needs {world} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, torch.arange(world).reshape(
+        tuple(int(n) for n in shape)), mesh_dim_names=tuple(axes))
+
+
+MESH_SHAPES = {"single": (16, 16), "multi": (2, 16, 16)}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> DeviceMesh:
+    """The reference's production mesh: (16, 16) ``("data", "model")``, or
+    (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``."""
+    shape = MESH_SHAPES["multi" if multi_pod else "single"]
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type=device_type)
+
+
+def make_mesh_named(name: str, *, device_type: Optional[str] = None
+                    ) -> DeviceMesh:
+    if name in ("single", "single_pod", "16x16"):
+        return make_production_mesh(multi_pod=False, device_type=device_type)
+    if name in ("multi", "multi_pod", "2x16x16"):
+        return make_production_mesh(multi_pod=True, device_type=device_type)
+    raise ValueError(name)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
-from repro_torch.models.common import Spec
+from repro_torch.models.common import Spec, shard
 
 NEG_INF = -1e30
 
@@ -29,20 +29,25 @@ def attn_specs(d_model: int, num_heads: int, num_kv_heads: int,
                head_dim: int, use_bias: bool = False,
                qk_norm: bool = False) -> dict:
     s = {
-        "wq": Spec((d_model, num_heads, head_dim)),
-        "wk": Spec((d_model, num_kv_heads, head_dim)),
-        "wv": Spec((d_model, num_kv_heads, head_dim)),
+        "wq": Spec((d_model, num_heads, head_dim),
+                   ("embed", "heads", None)),
+        "wk": Spec((d_model, num_kv_heads, head_dim),
+                   ("embed", "kv_heads", None)),
+        "wv": Spec((d_model, num_kv_heads, head_dim),
+                   ("embed", "kv_heads", None)),
         "wo": Spec((num_heads, head_dim, d_model),
-                   fan_in=num_heads * head_dim),
+                   ("heads", None, "embed"), fan_in=num_heads * head_dim),
     }
     if use_bias:
-        s["bq"] = Spec((num_heads, head_dim), "zeros")
-        s["bk"] = Spec((num_kv_heads, head_dim), "zeros")
-        s["bv"] = Spec((num_kv_heads, head_dim), "zeros")
-        s["bo"] = Spec((d_model,), "zeros")
+        s["bq"] = Spec((num_heads, head_dim), ("heads", None), "zeros")
+        s["bk"] = Spec((num_kv_heads, head_dim), ("kv_heads", None),
+                       "zeros")
+        s["bv"] = Spec((num_kv_heads, head_dim), ("kv_heads", None),
+                       "zeros")
+        s["bo"] = Spec((d_model,), ("embed",), "zeros")
     if qk_norm:
-        s["q_norm"] = Spec((head_dim,), "ones")
-        s["k_norm"] = Spec((head_dim,), "ones")
+        s["q_norm"] = Spec((head_dim,), ("head_dim",), "ones")
+        s["k_norm"] = Spec((head_dim,), ("head_dim",), "ones")
     return s
 
 
@@ -58,8 +63,15 @@ class KVCache(NamedTuple):
                        torch.zeros(shp, dtype=dtype, device=device))
 
 
+def _in_proj(x, w):
+    """x [B, S, D] by w [D, H, K] -> [B, S, H, K] (one matrix product, as
+    the einsum "bsd,dhk->bshk")."""
+    return torch.matmul(x, w.to(x.dtype).flatten(1)).unflatten(
+        -1, w.shape[1:])
+
+
 def _project_q(p, x, qk_norm, norm_eps):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = _in_proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     if qk_norm:
@@ -71,8 +83,8 @@ def cross_kv(p, kv_src, *, qk_norm=False, norm_eps=1e-6):
     """Project the memory (the vision tokens) [B, Nv, D_model] to K/V
     [B, Nv, Kh, D] once; the decode reuses them.  Also the K/V of
     self-attention, where the memory is the input itself."""
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(kv_src.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(kv_src.dtype))
+    k = _in_proj(kv_src, p["wk"])
+    v = _in_proj(kv_src, p["wv"])
     if "bk" in p:
         k = k + p["bk"].to(kv_src.dtype)
         v = v + p["bv"].to(kv_src.dtype)
@@ -87,10 +99,10 @@ def _project_qkv(p, x, qk_norm, norm_eps):
 
 
 def _project_out(p, out, x):
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = torch.matmul(out.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
-    return out
+    return shard(out, "batch", "seq", None)
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +118,11 @@ def self_attention(p, x, positions, *, rope_theta, causal=True, window=0,
     if use_rope:
         q = common.apply_rope(q, positions, rope_theta)
         k = common.apply_rope(k, positions, rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    # the kernel reads each query head's K/V head by its group, where the
+    # reference expands K/V to every head and annotates that expansion
+    v = shard(v, "batch", "seq", "kv_heads", None)
     out = ops.flash_attention(_heads_first(q), _heads_first(k),
                               _heads_first(v), causal=causal, window=window,
                               softcap=softcap).transpose(1, 2)
@@ -135,6 +152,9 @@ def decode_self_attention(p, x, cache: KVCache, pos: int, *, rope_theta,
     storage).
     """
     q, k, v = _project_qkv(p, x, qk_norm, norm_eps)
+    # 'dec_heads' (not 'heads'): decode-time q sharding is a separate
+    # decision from weight TP
+    q = shard(q, "batch", None, "dec_heads", None)
     if use_rope:
         positions = torch.full((1,), pos, dtype=torch.int64,
                                device=x.device)

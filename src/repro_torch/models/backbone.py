@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, ffn, mamba2, moe_ep, rglru
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import Params, Spec
+from repro_torch.models.common import Params, Spec, shard
 
 VOCAB_ALIGN = 128  # the reference pads the vocab to a multiple of this
 KINDS = ("attn", "moe", "ssd", "rec", "cross")
@@ -89,7 +89,7 @@ def layer_plan(cfg) -> LayerPlan:
 
 # ------------------------------------------------------------------ specs
 def _norm_spec(cfg) -> Spec:
-    return Spec((cfg.d_model,), "ones")
+    return Spec((cfg.d_model,), ("embed",), "ones")
 
 
 def block_specs(kind: str, cfg) -> dict:
@@ -115,24 +115,26 @@ def block_specs(kind: str, cfg) -> dict:
         # the tanh gates start at 0, as the reference's: the layer then
         # passes its input through until trained
         return {"ln1": _norm_spec(cfg), "xattn": attn,
-                "gate_attn": Spec((), "zeros"),
+                "gate_attn": Spec((), (), "zeros"),
                 "ln2": _norm_spec(cfg), "mlp": ffn.mlp_specs(D, F),
-                "gate_mlp": Spec((), "zeros")}
+                "gate_mlp": Spec((), (), "zeros")}
     raise ValueError(kind)
 
 
 def model_specs(cfg) -> dict:
     Vp = padded_vocab(cfg)
     if cfg.input_mode == "frames":
-        embed = {"frame_proj": Spec((cfg.frame_dim, cfg.d_model)),
-                 "frame_bias": Spec((cfg.d_model,), "zeros")}
+        embed = {"frame_proj": Spec((cfg.frame_dim, cfg.d_model),
+                                    (None, "embed")),
+                 "frame_bias": Spec((cfg.d_model,), ("embed",), "zeros")}
     else:
-        embed = {"tok": Spec((Vp, cfg.d_model), "embed")}
+        embed = {"tok": Spec((Vp, cfg.d_model), ("vocab", "embed"),
+                              "embed")}
     s = {"embed": embed,
          "layers": [block_specs(k, cfg) for k in layer_plan(cfg).kinds],
          "final_norm": _norm_spec(cfg)}
     if cfg.input_mode == "frames" or not cfg.tie_embeddings:
-        s["head"] = Spec((cfg.d_model, Vp))    # untied
+        s["head"] = Spec((cfg.d_model, Vp), ("embed", "vocab"))  # untied
     return s
 
 
@@ -144,7 +146,8 @@ def train_specs(cfg) -> dict:
     s = model_specs(cfg)
     del s["layers"]
     s["prefix"] = [block_specs(k, cfg) for k in plan.prefix]
-    s["groups"] = tuple(common.stack_specs(block_specs(k, cfg), plan.n_groups)
+    s["groups"] = tuple(common.stack_specs(block_specs(k, cfg), plan.n_groups,
+                                           "layers")
                         for k in plan.pattern) if plan.n_groups else ()
     s["suffix"] = [block_specs(k, cfg) for k in plan.suffix]
     return s
@@ -196,7 +199,7 @@ def _embed(params, cfg, inputs, compute_dtype):
         # no host-to-device copy (and its stream sync) per call
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
         x = x * scale.item()
-    return x
+    return shard(x, "batch", "seq", None)
 
 
 def _attn_kwargs(cfg) -> dict:
@@ -290,9 +293,25 @@ def layer_sections(params, cfg):
     return list(params["prefix"]), groups, list(params["suffix"])
 
 
+def serving_params(params, cfg) -> dict:
+    """The serving layout of parameters in either layout: ``layers`` one
+    tree a layer in execution order (views of a stacked leaf's layers)."""
+    if "layers" in params:
+        return params
+    prefix, groups, suffix = layer_sections(params, cfg)
+    out = {k: v for k, v in params.items()
+           if k not in ("prefix", "groups", "suffix")}
+    out["layers"] = prefix + [p for g in groups for p in g] + suffix
+    return out
+
+
+def _same(tree):
+    return tree
+
+
 def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
                    image_embeds=None, layer_metrics: Optional[list] = None,
-                   remat: bool = False):
+                   remat: bool = False, gather=None):
     """Embed + all layers + final norm.  inputs: tokens [B, S] (frames
     [B, S, frame_dim] for frame input) -> [B, S, D].  ``params`` in the
     serving layout or the JAX layout (``train_specs``).
@@ -303,9 +322,14 @@ def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
     reference's ``forward_hidden`` returns their sums (``train_loss``
     sums them).  ``remat``: each group of pattern layers is checkpointed
     (recomputed in the backward), as the reference checkpoints its scan
-    body; the prefix and suffix layers are not."""
+    body; the prefix and suffix layers are not.  ``gather`` maps each
+    parameter subtree (the embedding, a layer, the final norm) where it is
+    used, inside a group's checkpoint (so the recompute maps it again):
+    the trainer's gather of sharded parameters, a layer at a time."""
     plan = layer_plan(cfg)
-    x = _embed(params, cfg, inputs, compute_dtype)
+    gather = gather or _same
+    x = _embed({"embed": gather(params["embed"])}, cfg, inputs,
+               compute_dtype)
     vision = _vision(cfg, image_embeds, compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     prefix, groups, suffix = layer_sections(params, cfg)
@@ -314,7 +338,8 @@ def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
     def run(kinds, layers, x):
         out = []
         for kind, p in zip(kinds, layers):
-            x, m, _ = apply_block(kind, p, x, cfg, positions, vision)
+            x, m, _ = apply_block(kind, gather(p), x, cfg, positions,
+                                  vision)
             out.append(m)
         return x, out
 
@@ -329,7 +354,14 @@ def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
         metrics += m
     x, m = run(plan.suffix, suffix, x)
     metrics += m
-    return common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return common.rms_norm(x, gather(params["final_norm"]), cfg.norm_eps)
+
+
+def _head_params(params, gather) -> dict:
+    """The head's parameters, mapped by ``gather``: the untied head, or
+    the embedding it is tied to."""
+    return {"head": gather(params["head"])} if "head" in params else \
+        {"embed": gather(params["embed"])}
 
 
 def _head_weight(params, x_dtype):
@@ -342,7 +374,8 @@ def _head_weight(params, x_dtype):
 def logits_from_hidden(params, cfg, x) -> torch.Tensor:
     """Full-vocab logits, from the untied head or the tied embedding.
     [B, S, D] -> [B, S, Vp] float32."""
-    logits = torch.matmul(x, _head_weight(params, x.dtype)).float()
+    logits = torch.matmul(x, _head_weight(params, x.dtype))
+    logits = shard(logits, "batch", "seq", "vocab").float()
     Vp = logits.shape[-1]
     if Vp > cfg.vocab_size:  # mask vocab padding
         logits[..., cfg.vocab_size:] = -1e30
@@ -420,20 +453,62 @@ def decode_block(kind: str, p, cache, x, cfg, pos: int):
 
 
 def decode_step(params, cfg, state: DecodeState, token: torch.Tensor, *,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, gather=None):
     """One decode step.  token: [B, 1] -> ([B, Vp] f32 logits, state).
 
-    The attention caches are updated in place.
+    The attention caches are updated in place.  ``gather`` as
+    ``forward_hidden``'s.
     """
-    x = _embed(params, cfg, token, compute_dtype)
+    gather = gather or _same
+    x = _embed({"embed": gather(params["embed"])}, cfg, token,
+               compute_dtype)
     caches = []
     for kind, p, c in zip(layer_plan(cfg).kinds, params["layers"],
                           state.layers):
-        x, c = decode_block(kind, p, c, x, cfg, state.pos)
+        x, c = decode_block(kind, gather(p), c, x, cfg, state.pos)
         caches.append(c)
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(params, cfg, x)[:, 0]
+    x = common.rms_norm(x, gather(params["final_norm"]), cfg.norm_eps)
+    logits = logits_from_hidden(_head_params(params, gather), cfg, x)[:, 0]
     return logits, DecodeState(pos=state.pos + 1, layers=tuple(caches))
+
+
+# --------------------------------------------------- logical axes for caches
+# Axis tuples are encoded as '|'-joined strings so they survive as tree
+# *leaves* (tuples would be walked); parse_axes() recovers the name tuple.
+def parse_axes(s: str):
+    return tuple(None if a == "" else a for a in s.split("|")) \
+        if s else ()
+
+
+def _ax(*names) -> str:
+    return "|".join("" if n is None else n for n in names)
+
+
+def _block_cache_axes(kind: str):
+    """Logical-axis strings matching ``init_block_cache``'s leaf shapes
+    (one layer: the port keeps no stacked caches)."""
+    if kind == "ssd":
+        return mamba2.SSMState(conv=_ax("batch", None, "ff"),
+                               h=_ax("batch", "heads", None, None))
+    if kind == "rec":
+        return rglru.RGLRUState(conv=_ax("batch", None, "ff"),
+                                h=_ax("batch", "ff"))
+    if kind in ("attn", "moe"):
+        # the cache is sharded along the SEQUENCE dim: decode attends to
+        # local KV slices and combines partial softmax stats
+        ax = _ax("batch", "kv_seq", None, None)
+        return KVCache(k=ax, v=ax)
+    if kind == "cross":
+        ax = _ax("batch", "vision", "kv_heads", "head_dim")
+        return (ax, ax)
+    raise ValueError(kind)
+
+
+def decode_state_axes(cfg) -> DecodeState:
+    """DecodeState-shaped tree of axis strings (``pos`` is a Python int
+    and has none): the reference's, one entry a layer."""
+    return DecodeState(pos=_ax(), layers=tuple(
+        _block_cache_axes(k) for k in layer_plan(cfg).kinds))
 
 
 # ------------------------------------------------------------------ prefill
@@ -455,35 +530,42 @@ def _fill_kv_cache(cfg, kv, max_len: int, dtype) -> KVCache:
 
 def prefill(params, cfg, tokens, *, max_len: Optional[int] = None,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-            image_embeds=None, layer_metrics: Optional[list] = None):
+            image_embeds=None, layer_metrics: Optional[list] = None,
+            gather=None):
     """Process the prompt [B, S]; return ([B, Vp] f32 last-position logits,
-    DecodeState).  ``image_embeds`` and ``layer_metrics`` as in
-    ``forward_hidden``; a cross layer's cache is its memory K/V in the
+    DecodeState).  ``image_embeds``, ``layer_metrics`` and ``gather`` as
+    in ``forward_hidden``; a cross layer's cache is its memory K/V in the
     compute dtype, as the reference keeps it."""
-    x = _embed(params, cfg, tokens, compute_dtype)
+    gather = gather or _same
+    x = _embed({"embed": gather(params["embed"])}, cfg, tokens,
+               compute_dtype)
     vision = _vision(cfg, image_embeds, compute_dtype)
     S = x.shape[1]
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)
     caches = []
     for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
-        x, m, c = apply_block(kind, p, x, cfg, positions, vision,
+        x, m, c = apply_block(kind, gather(p), x, cfg, positions, vision,
                               collect_cache=True)
         if layer_metrics is not None:
             layer_metrics.append(m)
         if kind in ("attn", "moe"):
             c = _fill_kv_cache(cfg, c, max_len, cache_dtype)
         caches.append(c)
-    x = common.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(params, cfg, x)[:, 0]
+    x = common.rms_norm(x[:, -1:], gather(params["final_norm"]),
+                        cfg.norm_eps)
+    logits = logits_from_hidden(_head_params(params, gather), cfg, x)[:, 0]
     return logits, DecodeState(pos=S, layers=tuple(caches))
 
 
-def encode(params, cfg, frames, *, compute_dtype=torch.bfloat16):
+def encode(params, cfg, frames, *, compute_dtype=torch.bfloat16,
+           gather=None):
     """Encoder-only serve step (hubert): frames [B, S, frame_dim] ->
     full-sequence logits [B, S, Vp] float32."""
-    x = forward_hidden(params, cfg, frames, compute_dtype=compute_dtype)
-    return logits_from_hidden(params, cfg, x)
+    gather = gather or _same
+    x = forward_hidden(params, cfg, frames, compute_dtype=compute_dtype,
+                       gather=gather)
+    return logits_from_hidden(_head_params(params, gather), cfg, x)
 
 
 # ------------------------------------------------------------------ training
@@ -503,7 +585,8 @@ def chunked_xent(params, cfg, x, labels, valid, *, seq_chunk: int = 512):
         chunk //= 2
 
     def one_chunk(xc, lc, vc):
-        logits = torch.matmul(xc, _head_weight(params, xc.dtype)).float()
+        logits = torch.matmul(xc, _head_weight(params, xc.dtype))
+        logits = shard(logits, "batch", None, "vocab").float()
         if logits.shape[-1] > V:
             pad = torch.arange(logits.shape[-1], device=x.device) >= V
             logits = torch.where(pad, -1e30, logits)
@@ -527,22 +610,22 @@ def chunked_xent(params, cfg, x, labels, valid, *, seq_chunk: int = 512):
 
 def train_loss(params, cfg, batch: dict, *, compute_dtype=torch.bfloat16,
                remat: bool = True, moe_aux_weight: float = 0.01,
-               moe_z_weight: float = 1e-3, seq_chunk: int = 512):
+               moe_z_weight: float = 1e-3, seq_chunk: int = 512,
+               gather=None):
     """Next-token LM loss (labels for frame input and encoders), plus the
     MoE aux and z terms.  ``batch``: ``tokens`` [B, S] (or ``frames``
     [B, S, frame_dim] and ``labels`` [B, S], -1 = no label) and, for the
-    vision family, ``image_embeds``.  Returns (loss, metrics): the summed
-    MoE metrics, accuracy, tokens, ce_loss and loss (0-d float32)."""
-    if cfg.family == "moe" and cfg.moe_impl == "ep_a2a":
-        raise NotImplementedError(
-            f"{cfg.name}: training through moe_ep (moe_impl='ep_a2a') is not "
-            f"ported; use moe_impl='spmd'")
+    vision family, ``image_embeds``.  ``gather`` as ``forward_hidden``'s
+    (the head is mapped once, for every chunk).  Returns (loss, metrics):
+    the summed MoE metrics, accuracy, tokens, ce_loss and loss (0-d
+    float32)."""
     frames = cfg.input_mode == "frames"
     layer_metrics: list = []
     x = forward_hidden(params, cfg, batch["frames" if frames else "tokens"],
                        compute_dtype=compute_dtype,
                        image_embeds=batch.get("image_embeds"),
-                       layer_metrics=layer_metrics, remat=remat)
+                       layer_metrics=layer_metrics, remat=remat,
+                       gather=gather)
     if frames or not cfg.causal:
         labels = batch["labels"].long()
         valid = labels >= 0
@@ -552,8 +635,8 @@ def train_loss(params, cfg, batch: dict, *, compute_dtype=torch.bfloat16,
         labels = torch.cat([tok[:, 1:], torch.zeros_like(tok[:, :1])], 1)
         valid = torch.ones_like(labels, dtype=torch.bool)
         valid[:, -1] = False
-    ce, ce_metrics = chunked_xent(params, cfg, x, labels, valid,
-                                  seq_chunk=seq_chunk)
+    ce, ce_metrics = chunked_xent(_head_params(params, gather or _same),
+                                  cfg, x, labels, valid, seq_chunk=seq_chunk)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics = {}
     for k in ZERO_METRICS:

@@ -20,14 +20,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import context as dctx
+
 
 class Spec(NamedTuple):
-    """Parameter descriptor: shape + initializer."""
+    """Parameter descriptor: shape + logical axes + initializer.  The
+    axes name each dim for the sharding rules (``distributed.sharding``);
+    None leaves a dim to replicate (no axes at all: every dim)."""
 
     shape: tuple
+    axes: Optional[tuple] = None   # logical axis name (or None) per dim
     init: str = "normal"   # normal | zeros | ones | embed | ssm_a | ssm_dt
     #                        | rglru_a
     fan_in: Optional[int] = None
+
+    def logical_axes(self) -> tuple:
+        return self.axes if self.axes is not None else \
+            (None,) * len(self.shape)
+
+    def pspec(self) -> tuple:
+        """Each dim's mesh-axis entry under the installed mesh and rules
+        (``distributed.context.pspec_for``)."""
+        return dctx.pspec_for(self.shape, self.logical_axes())
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
 
 
 SLAB_ELEMENTS = 1 << 30   # the largest float32 draw of one leaf (4 GiB)
@@ -75,18 +93,18 @@ def init_param(spec: Spec, gen: torch.Generator, dtype,
     return out
 
 
-def _map_tree(fn, tree):
+def map_specs(fn, tree):
     if isinstance(tree, Spec):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return [_map_tree(fn, v) for v in tree]
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return [map_specs(fn, v) for v in tree]
 
 
 def init_tree(specs, gen: torch.Generator, dtype, device):
     """Materialize a Spec tree (dicts and lists) into tensors, leaf by leaf
     in the tree's order."""
-    return _map_tree(lambda s: init_param(s, gen, dtype, device), specs)
+    return map_specs(lambda s: init_param(s, gen, dtype, device), specs)
 
 
 def count_params(specs) -> int:
@@ -96,17 +114,24 @@ def count_params(specs) -> int:
     return sum(count_params(v) for v in values)
 
 
-def stack_specs(spec, n: int):
+def pspec_tree(specs):
+    """Each leaf's mesh-axis entries (``Spec.pspec``), in the tree's
+    structure."""
+    return map_specs(Spec.pspec, specs)
+
+
+def stack_specs(spec, n: int, axis_name: Optional[str] = "layers"):
     """Prefix every Spec of a tree with a stacking dimension of ``n``
-    layers (the JAX layout of a pattern position's layers).  Each stacked
-    leaf keeps its one layer's fan-in."""
+    layers (the JAX layout of a pattern position's layers), named
+    ``axis_name``.  Each stacked leaf keeps its one layer's fan-in."""
     def stack(s: Spec) -> Spec:
         fan_in = s.fan_in
         if fan_in is None:
             fan_in = s.shape[0] if len(s.shape) >= 2 else \
                 (s.shape[-1] if s.shape else 1)
-        return Spec((n,) + tuple(s.shape), s.init, fan_in)
-    return _map_tree(stack, spec)
+        return Spec((n,) + tuple(s.shape), (axis_name,) + s.logical_axes(),
+                    s.init, fan_in)
+    return map_specs(stack, spec)
 
 
 def _is_namedtuple(x) -> bool:
@@ -123,6 +148,16 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_specs(specs) -> list:
+    """The Specs of a spec tree in JAX's flatten order (dict keys
+    sorted), as ``tree_leaves`` walks the tree it describes."""
+    if isinstance(specs, Spec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in tree_leaves_specs(specs[k])]
+    return [x for v in specs for x in tree_leaves_specs(v)]
 
 
 def tree_map(fn, tree, *rest):
@@ -242,3 +277,7 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def shard(x, *axes):
+    return dctx.shard(x, *axes)

@@ -22,22 +22,22 @@ from typing import Optional
 import torch
 
 from repro_torch.models import common
-from repro_torch.models.common import Spec
+from repro_torch.models.common import Spec, shard
 
 NEG_INF = -1e30
 
 
 def mlp_specs(d_model: int, d_ff: int, use_bias: bool = False,
               gated: bool = True) -> dict:
-    s = {"w_up": Spec((d_model, d_ff)),
-         "w_down": Spec((d_ff, d_model))}
+    s = {"w_up": Spec((d_model, d_ff), ("embed", "ff")),
+         "w_down": Spec((d_ff, d_model), ("ff", "embed"))}
     if gated:
-        s["w_gate"] = Spec((d_model, d_ff))
+        s["w_gate"] = Spec((d_model, d_ff), ("embed", "ff"))
     if use_bias:
-        s["b_up"] = Spec((d_ff,), "zeros")
-        s["b_down"] = Spec((d_model,), "zeros")
+        s["b_up"] = Spec((d_ff,), ("ff",), "zeros")
+        s["b_down"] = Spec((d_model,), ("embed",), "zeros")
         if gated:
-            s["b_gate"] = Spec((d_ff,), "zeros")
+            s["b_gate"] = Spec((d_ff,), ("ff",), "zeros")
     return s
 
 
@@ -50,26 +50,30 @@ def mlp(p, x: torch.Tensor) -> torch.Tensor:
         g = torch.matmul(x, p["w_gate"].to(x.dtype))
         if "b_gate" in p:
             g = g + p["b_gate"].to(x.dtype)
+        g = shard(g, "batch", "seq", "ff")
         h = common.swiglu(g, u)
     else:                       # ungated GELU (hubert / wav2vec2 family)
-        h = common.gelu(u)
+        h = common.gelu(shard(u, "batch", "seq", "ff"))
     out = torch.matmul(h, p["w_down"].to(x.dtype))
     if "b_down" in p:
         out = out + p["b_down"].to(x.dtype)
-    return out
+    return shard(out, "batch", "seq", None)
 
 
 # ------------------------------------------------------------------------ MoE
 def moe_specs(d_model: int, moe_d_ff: int, num_experts_padded: int,
               num_shared: int = 0) -> dict:
     E = num_experts_padded
-    s = {"router": Spec((d_model, E), fan_in=d_model),
-         "w_gate": Spec((E, d_model, moe_d_ff), fan_in=d_model),
-         "w_up": Spec((E, d_model, moe_d_ff), fan_in=d_model),
-         "w_down": Spec((E, moe_d_ff, d_model), fan_in=moe_d_ff)}
+    s = {"router": Spec((d_model, E), ("embed", "experts"), fan_in=d_model),
+         "w_gate": Spec((E, d_model, moe_d_ff), ("experts", "embed", "ff"),
+                        fan_in=d_model),
+         "w_up": Spec((E, d_model, moe_d_ff), ("experts", "embed", "ff"),
+                      fan_in=d_model),
+         "w_down": Spec((E, moe_d_ff, d_model), ("experts", "ff", "embed"),
+                        fan_in=moe_d_ff)}
     if num_shared > 0:
         s["shared"] = mlp_specs(d_model, num_shared * moe_d_ff)
-        s["shared_gate"] = Spec((d_model, 1), "zeros")
+        s["shared_gate"] = Spec((d_model, 1), ("embed", None), "zeros")
     return s
 
 
@@ -172,8 +176,9 @@ def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int,
     # one spare row takes every dropped choice and is cut off
     buf = x.new_zeros(n + 1, D)
     buf[dest] = xf[order // top_k]
-    ye = experts_swiglu(buf[:n].view(E_pad, cap, D), p["w_gate"],
-                        p["w_up"], p["w_down"]).reshape(n, D)
+    xe = shard(buf[:n].view(E_pad, cap, D), "experts", "capacity", None)
+    ye = experts_swiglu(xe, p["w_gate"], p["w_up"], p["w_down"])
+    ye = shard(ye, "experts", "capacity", None).reshape(n, D)
     y = combine(ye[torch.clamp_max(dest, n - 1)], keep, order, gate_w,
                 top_k)
     y = y.reshape(B, S, D)
@@ -181,4 +186,4 @@ def moe(p, x: torch.Tensor, *, num_experts: int, top_k: int,
         y = y + shared_expert(p, x)
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z,
                "moe_drop_frac": 1.0 - keep.float().mean()}
-    return y, metrics
+    return shard(y, "batch", None, None), metrics

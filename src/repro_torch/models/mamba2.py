@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
-from repro_torch.models.common import Spec
+from repro_torch.models.common import Spec, shard
 
 
 def ssd_specs(cfg) -> dict:
@@ -31,19 +31,19 @@ def ssd_specs(cfg) -> dict:
     G, N = cfg.ssm_groups, cfg.ssm_state
     conv_ch = d_inner + 2 * G * N
     return {
-        "w_z": Spec((D, d_inner)),
-        "w_x": Spec((D, d_inner)),
-        "w_B": Spec((D, G * N)),
-        "w_C": Spec((D, G * N)),
-        "w_dt": Spec((D, H)),
-        "conv_w": Spec((cfg.ssm_conv_width, conv_ch), "normal",
+        "w_z": Spec((D, d_inner), ("embed", "ff")),
+        "w_x": Spec((D, d_inner), ("embed", "ff")),
+        "w_B": Spec((D, G * N), ("embed", None)),
+        "w_C": Spec((D, G * N), ("embed", None)),
+        "w_dt": Spec((D, H), ("embed", "heads")),
+        "conv_w": Spec((cfg.ssm_conv_width, conv_ch), (None, "ff"), "normal",
                        fan_in=cfg.ssm_conv_width),
-        "conv_b": Spec((conv_ch,), "zeros"),
-        "dt_bias": Spec((H,), "ssm_dt"),
-        "A_log": Spec((H,), "ssm_a"),
-        "D_skip": Spec((H,), "ones"),
-        "norm": Spec((d_inner,), "ones"),
-        "w_out": Spec((d_inner, D), fan_in=d_inner),
+        "conv_b": Spec((conv_ch,), ("ff",), "zeros"),
+        "dt_bias": Spec((H,), ("heads",), "ssm_dt"),
+        "A_log": Spec((H,), ("heads",), "ssm_a"),
+        "D_skip": Spec((H,), ("heads",), "ones"),
+        "norm": Spec((d_inner,), ("ff",), "ones"),
+        "w_out": Spec((d_inner, D), ("ff", "embed"), fan_in=d_inner),
     }
 
 
@@ -94,7 +94,7 @@ def ssd_block(p, x: torch.Tensor, cfg, return_state: bool = False):
     A = -torch.exp(p["A_log"].float())                       # [H]
     dA = dt * A                                              # [B,S,H]
 
-    xh = xc.reshape(B, S, H, P)
+    xh = shard(xc.reshape(B, S, H, P), "batch", None, "heads", None)
     rep = H // G                     # broadcast groups over heads
     Bg = Bm.reshape(B, nC, Q, G, N)
     Cg = Cm.reshape(B, nC, Q, G, N)

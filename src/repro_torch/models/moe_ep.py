@@ -23,6 +23,16 @@ Without a mesh, without a ``"model"`` dim, or where B, S or E_pad does
 not divide over the mesh, it falls back to the dense ``ffn.moe``, as the
 reference does (that needs the full tree).  The decode keeps the dense
 path (``models/backbone.decode_block``).
+
+It is differentiable, as the reference is through its ``shard_map``: each
+all-to-all's backward is the reverse all-to-all (the same exchange, which
+is its own inverse), the gather of the chunks gives each rank its chunk's
+gradient, and the mean of the losses hands each rank its 1/n share.  The
+whole ``x``, the router and the shared expert enter every rank alike, so
+their gradients are summed over the mesh in the backward, and each
+rank's experts' over the ``"data"`` dim: every rank then holds the
+single-program gradient of what it holds (the loss downstream of ``y`` is
+computed alike on every rank, as every rank holds the whole ``y``).
 """
 from __future__ import annotations
 
@@ -72,6 +82,79 @@ def local_experts(p, mesh) -> dict:
     return out
 
 
+class _AllToAll(torch.autograd.Function):
+    """``collectives.all_to_all``; its backward sends each gradient block
+    back where its block came from, which is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return collectives.all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_to_all(g.contiguous(), ctx.group), None
+
+
+class _GatherCat(torch.autograd.Function):
+    """``collectives.gather_cat``; every rank computes alike from the whole
+    result, so a rank's gradient is its own chunk of the result's."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = torch.distributed.get_rank(group)
+        return collectives.gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """``collectives.mean_over``; a rank's share of the mean's gradient is
+    1/n of it."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.n = 1
+        for g in groups:
+            ctx.n *= torch.distributed.get_world_size(g)
+        return collectives.mean_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``groups``: an
+    input every rank holds alike and uses a part of."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.sum_over(g.contiguous(), ctx.groups), None
+
+
+def _shared_in(x, groups):
+    if not groups or not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _SumGradOver.apply(x, groups)
+
+
+def _shared_tree(t, groups):
+    if isinstance(t, torch.Tensor):
+        return _shared_in(t, groups)
+    if isinstance(t, dict):
+        return {k: _shared_tree(v, groups) for k, v in t.items()}
+    return t        # a frozen serving tree takes no gradient
+
+
 def _owned_chunk_moe(xc, router_w, w_gate, w_up, w_down, *,
                      num_experts: int, top_k: int, cap: int, group, M: int):
     """The EP body for one rank's owned chunk.  xc: [tc, D]; w_*: the
@@ -88,13 +171,13 @@ def _owned_chunk_moe(xc, router_w, w_gate, w_up, w_down, *,
     buf[dest] = xc[order // top_k]
 
     # EP exchange out: each expert receives its tokens from every peer
-    recv = collectives.all_to_all(buf[:n].view(M, E_loc, cap, D), group)
+    recv = _AllToAll.apply(buf[:n].view(M, E_loc, cap, D), group)
     xe = recv.transpose(0, 1).reshape(E_loc, M * cap, D)
     ye = ffn.experts_swiglu(xe, w_gate, w_up, w_down)
 
     # EP exchange back: the outputs return to the tokens' owners
     back = ye.view(E_loc, M, cap, D).transpose(0, 1).contiguous()
-    ret = collectives.all_to_all(back, group).reshape(n, D)
+    ret = _AllToAll.apply(back, group).reshape(n, D)
     y = ffn.combine(ret[torch.clamp_max(dest, n - 1)], keep, order, gate_w,
                     top_k)
     drop = 1.0 - keep.float().mean()
@@ -121,6 +204,15 @@ def moe_ep(p, x: torch.Tensor, *, num_experts: int, top_k: int,
                        capacity_factor=capacity_factor)
     if p["w_gate"].shape[0] != E_pad // M:
         p = local_experts(p, mesh)
+    groups = [mesh.get_group(a) for a in (DATA_AXIS, MODEL_AXIS)
+              if a in names]
+    # gradients: what every rank holds alike sums over the mesh, each
+    # rank's experts over the data dim (backward only; the forward is the
+    # identity)
+    if torch.is_grad_enabled():
+        x = _shared_in(x, groups)
+        p = {k: (_shared_in(v, groups[:-1]) if k in EXPERT_LEAVES else
+                 _shared_tree(v, groups)) for k, v in p.items()}
     _, m = _model_rank(mesh)
     d = mesh.get_local_rank(DATA_AXIS) if DATA_AXIS in names else 0
     b_loc, s_loc = B // n_data, S // M
@@ -136,11 +228,10 @@ def moe_ep(p, x: torch.Tensor, *, num_experts: int, top_k: int,
     if "shared" in p:
         y = y + ffn.shared_expert(p, xb)
 
-    groups = [mesh.get_group(a) for a in (DATA_AXIS, MODEL_AXIS)
-              if a in names]
-    y = collectives.gather_cat(y, groups[-1], dim=1)
+    y = _GatherCat.apply(y, groups[-1], 1)
     if len(groups) == 2:
-        y = collectives.gather_cat(y, groups[0], dim=0)
-    aux, z, drop = collectives.mean_over(torch.stack([aux, z, drop]),
-                                         groups).unbind()
+        y = _GatherCat.apply(y, groups[0], 0)
+    aux, z, drop = _MeanOver.apply(torch.stack([aux, z, drop]),
+                                   groups).unbind()
+    y = dctx.shard(y, "batch", "seq", None)
     return y, {"moe_aux_loss": aux, "moe_z_loss": z, "moe_drop_frac": drop}

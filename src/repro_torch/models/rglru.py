@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import Spec, causal_conv, gelu
+from repro_torch.models.common import Spec, causal_conv, gelu, shard
 
 _C = 8.0  # RG-LRU recurrence-gate temperature
 
@@ -28,17 +28,17 @@ def rglru_specs(cfg) -> dict:
     D = cfg.d_model
     R = cfg.rglru_expand * D
     return {
-        "w_y": Spec((D, R)),                         # gate branch
-        "w_x": Spec((D, R)),                         # recurrent branch
-        "conv_w": Spec((cfg.rglru_conv_width, R), "normal",
+        "w_y": Spec((D, R), ("embed", "ff")),        # gate branch
+        "w_x": Spec((D, R), ("embed", "ff")),        # recurrent branch
+        "conv_w": Spec((cfg.rglru_conv_width, R), (None, "ff"), "normal",
                        fan_in=cfg.rglru_conv_width),
-        "conv_b": Spec((R,), "zeros"),
-        "w_a": Spec((R, R)),                         # recurrence gate
-        "b_a": Spec((R,), "zeros"),
-        "w_i": Spec((R, R)),                         # input gate
-        "b_i": Spec((R,), "zeros"),
-        "lam": Spec((R,), "rglru_a"),                # learnable decay logits
-        "w_out": Spec((R, D), fan_in=R),
+        "conv_b": Spec((R,), ("ff",), "zeros"),
+        "w_a": Spec((R, R), ("ff", "ff")),           # recurrence gate
+        "b_a": Spec((R,), ("ff",), "zeros"),
+        "w_i": Spec((R, R), ("ff", "ff")),           # input gate
+        "b_i": Spec((R,), ("ff",), "zeros"),
+        "lam": Spec((R,), ("ff",), "rglru_a"),       # learnable decay logits
+        "w_out": Spec((R, D), ("ff", "embed"), fan_in=R),
     }
 
 
@@ -70,6 +70,7 @@ def rglru_block(p, x: torch.Tensor, cfg, return_state: bool = False):
     xr_pre = torch.matmul(x, p["w_x"].to(x.dtype))
     xr = causal_conv(xr_pre, p["conv_w"].to(x.dtype),
                       p["conv_b"].to(x.dtype))
+    xr = shard(xr, "batch", "seq", "ff")
     a, u = _gates(p, xr, x.dtype)
     R = a.shape[-1]
     fold = lambda t: t.transpose(0, 1).reshape(S, B * R).contiguous()

@@ -26,28 +26,67 @@ from typing import Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.configs.base import RunConfig
+from repro_torch.distributed import collectives
 from repro_torch.models import backbone
+from repro_torch.models.common import tree_leaves, tree_map
+
+
+def _serving(params, mcfg):
+    """(parameters in the serving layout, the ``gather`` to run them
+    with): sharded parameters (DTensor leaves, the JAX layout) are
+    gathered a layer at a time where the step uses them; others are run
+    as they are."""
+    leaves = tree_leaves(params)
+    if not leaves or not isinstance(leaves[0], DTensor):
+        return params, None
+    return backbone.serving_params(params, mcfg), \
+        lambda t: tree_map(collectives.whole, t)
+
+
+def _rows(x):
+    """This rank's batch rows of a DTensor (every other dim gathered); a
+    plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    keep = [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, keep).to_local()
 
 
 def make_serve_step(run: RunConfig, kind: str, *,
                     compute_dtype=torch.bfloat16,
                     max_len: Optional[int] = None):
+    """The serve step of ``kind``.  Under a mesh (parameters as DTensors
+    in the JAX layout, ``launch.shardings``) the step gathers each layer's
+    parameters whole where it runs the layer, serves this rank's rows of
+    the batch and of the decode state (every other dim of a cache
+    gathered) and returns this rank's rows: no tensor-parallel compute,
+    and a decode step gathers its ``kv_seq``-sharded caches (the
+    reference combines partial softmaxes instead)."""
     mcfg = run.model
     if kind == "prefill":
         if not mcfg.causal:
             def encode_step(params, frames):
-                return backbone.encode(params, mcfg, frames,
-                                       compute_dtype=compute_dtype)
+                params, gather = _serving(params, mcfg)
+                return backbone.encode(params, mcfg, _rows(frames),
+                                       compute_dtype=compute_dtype,
+                                       gather=gather)
             return encode_step
 
         def prefill_step(params, tokens, image_embeds=None,
                          layer_metrics=None):
-            return backbone.prefill(params, mcfg, tokens, max_len=max_len,
+            params, gather = _serving(params, mcfg)
+            return backbone.prefill(params, mcfg, _rows(tokens),
+                                    max_len=max_len,
                                     compute_dtype=compute_dtype,
                                     cache_dtype=compute_dtype,
-                                    image_embeds=image_embeds,
-                                    layer_metrics=layer_metrics)
+                                    image_embeds=None if image_embeds is None
+                                    else _rows(image_embeds),
+                                    layer_metrics=layer_metrics,
+                                    gather=gather)
         return prefill_step
 
     if kind == "decode":
@@ -56,8 +95,12 @@ def make_serve_step(run: RunConfig, kind: str, *,
                              f"decode step")
 
         def decode_step(params, state, tokens):
-            return backbone.decode_step(params, mcfg, state, tokens,
-                                        compute_dtype=compute_dtype)
+            params, gather = _serving(params, mcfg)
+            state = backbone.DecodeState(pos=state.pos, layers=tree_map(
+                _rows, state.layers))
+            return backbone.decode_step(params, mcfg, state, _rows(tokens),
+                                        compute_dtype=compute_dtype,
+                                        gather=gather)
         return decode_step
 
     raise ValueError(kind)

@@ -45,7 +45,9 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import threefry
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten)
@@ -70,8 +72,8 @@ class SyncState(NamedTuple):
 
 def init_state(grads) -> SyncState:
     return SyncState(err=tree_map(
-        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
-        grads))
+        lambda g: torch.zeros_like(g, dtype=torch.float32,
+                                   requires_grad=False), grads))
 
 
 def _logit(p: float) -> torch.Tensor:
@@ -122,9 +124,20 @@ def thin_gradients(grads, state: SyncState, rng, cfg: ThinnedSyncConfig):
     keys = threefry.split(rng, len(leaves))
     out, errs, kept, total = [], [], 0, 0
     for g, e, k in zip(leaves, tree_leaves(state.err), keys):
-        nb = -(-g.numel() // cfg.block)
-        u = threefry.uniform(k, nb, g.device)
-        s, ne, kb, b = _thin_one(g, e, u, cfg)
+        sharded = isinstance(g, DTensor)
+        if sharded:
+            # a leaf's blocks and their statistics span the whole leaf:
+            # every rank thins the gathered leaf, with the whole leaf's
+            # uniforms, and keeps its own shard (the same bits as one
+            # process)
+            g_full, e_full = collectives.whole(g), collectives.whole(e)
+        else:
+            g_full, e_full = g, e
+        nb = -(-g_full.numel() // cfg.block)
+        u = threefry.uniform(k, nb, g_full.device)
+        s, ne, kb, b = _thin_one(g_full, e_full, u, cfg)
+        if sharded:
+            s, ne = _reshard(s, g), _reshard(ne, e)
         out.append(s)
         errs.append(ne)
         kept = kept + kb
@@ -133,6 +146,13 @@ def thin_gradients(grads, state: SyncState, rng, cfg: ThinnedSyncConfig):
     err = tree_unflatten(grads, errs)
     metrics = {"sync_volume_fraction": kept / max(total, 1)}
     return synced, SyncState(err=err), metrics
+
+
+def _reshard(full: torch.Tensor, like: DTensor) -> DTensor:
+    """This rank's shard of ``full`` (the same on every rank), placed as
+    ``like``; no collective."""
+    return distribute_tensor(full, like.device_mesh, like.placements,
+                             src_data_rank=None)
 
 
 # ------------------------------------------------- straggler mitigation

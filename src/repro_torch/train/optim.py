@@ -22,6 +22,9 @@ from typing import Any, NamedTuple
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import collectives
 from repro_torch.models.common import tree_leaves, tree_map
 
 
@@ -41,20 +44,32 @@ def warmup_cosine(step: torch.Tensor, *, peak_lr: float, warmup_steps: int,
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed in JAX's order."""
+    summed in JAX's order.  A sharded leaf's (a DTensor's) sum is reduced
+    over the mesh first (``distributed.collectives.whole``), so the norm
+    is a plain tensor, the same on every rank."""
     total = None
     for x in tree_leaves(tree):
         sq = torch.sum(torch.square(x.float()))
+        if isinstance(sq, DTensor):
+            sq = collectives.whole(sq)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_scale(grads, max_norm: float):
+    """(the scale that brings the global norm to at most ``max_norm``,
+    the norm)."""
+    gnorm = global_norm(grads)
+    return torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9),
+                       max=1.0), gnorm
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """Scale the gradients in place so their global norm is at most
     ``max_norm``.  Returns (grads, norm before clipping)."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
+    scale, gnorm = clip_scale(grads, max_norm)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
     return grads, gnorm
@@ -128,15 +143,25 @@ def adafactor_init(params) -> AdafactorState:
 def adafactor_update(grads, state: AdafactorState, params, *, lr,
                      decay: float = 0.8, eps: float = 1e-30,
                      clip_threshold: float = 1.0, weight_decay: float = 0.0,
-                     step: torch.Tensor = None):
+                     step: torch.Tensor = None, grad_scale=None):
     """Factored RMS update (Shazeer & Stern) in float32, written into the
     params (their dtype) and the moments in place.  Returns (params,
-    state)."""
+    state).
+
+    ``grad_scale``: the global-norm clip's scale (a 0-d tensor in the
+    gradients' dtype), applied here in float32 instead of by
+    ``clip_by_global_norm``.  That is where XLA rounds in the reference's
+    fused step: it multiplies a bfloat16 gradient by the bfloat16 scale in
+    float32 and feeds the product to the update unrounded.  The update
+    clip divides once by the product of its two denominators, as XLA
+    rewrites ``u / a / b``."""
     t = step.float() + 1.0
     beta2 = 1.0 - torch.pow(t, -decay)
     for g, vr, vc, p in zip(tree_leaves(grads), tree_leaves(state.v_row),
                             tree_leaves(state.v_col), tree_leaves(params)):
         g32 = g.float()
+        if grad_scale is not None:
+            g32 = g32 * grad_scale.float()
         g2 = g32 * g32 + eps
         if _factored(p):
             vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
@@ -145,13 +170,14 @@ def adafactor_update(grads, state: AdafactorState, params, *, lr,
             v_hat = (vr[..., None] * vc[..., None, :]
                      / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True
                                                   )[..., None], eps))
-            u = g32 / torch.clamp_min(torch.sqrt(v_hat), eps)
+            denom = torch.clamp_min(torch.sqrt(v_hat), eps)
         else:
             vr.copy_(beta2 * vr + (1 - beta2) * g2)
-            u = g32 / torch.clamp_min(torch.sqrt(vr), eps)
+            denom = torch.clamp_min(torch.sqrt(vr), eps)
+        u = g32 / denom
         # update clipping (RMS(u) <= clip_threshold)
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
-        u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
+        u = g32 / (denom * torch.clamp_min(rms_u / clip_threshold, 1.0))
         p32 = p.float()
         p32 = p32 - lr * (u + weight_decay * p32)
         p.copy_(p32.to(p.dtype))

@@ -25,9 +25,14 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed import context as dctx
 from repro_torch.models import backbone
 from repro_torch.models.common import (trainable, tree_leaves, tree_map,
                                        tree_unflatten)
@@ -74,18 +79,45 @@ def restore_train_state(manager, template: TrainState, step=None,
 
 
 def _split_micro(batch: dict, n_micro: int) -> list:
-    out = []
-    for i in range(n_micro):
-        micro = {}
-        for k, x in batch.items():
-            B = x.shape[0]
-            if B % n_micro:
-                raise ValueError(f"batch of {B} rows does not split into "
-                                 f"{n_micro} microbatches")
-            m = B // n_micro
-            micro[k] = x[i * m:(i + 1) * m]
-        out.append(micro)
+    if isinstance(next(iter(batch.values())), DTensor):
+        return _split_micro_mesh(batch, n_micro)
+    parts = {k: _split_rows(x, n_micro) for k, x in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
+def _split_micro_mesh(batch: dict, n_micro: int) -> list:
+    """A sharded batch's micro-batches, each the rows the single-process
+    split gives it (micro-batch i is global rows [i m, (i + 1) m)), then
+    sharded as the batch is: the batch is gathered (its inputs are small
+    next to the state) and each rank keeps its chunk of every
+    micro-batch."""
+    out = [{} for _ in range(n_micro)]
+    for k, x in batch.items():
+        mesh = x.device_mesh
+        for i, part in enumerate(_split_rows(collectives.whole(x),
+                                             n_micro)):
+            out[i][k] = distribute_tensor(part, mesh, _rows_placements(
+                mesh, part, x.placements), src_data_rank=None)
     return out
+
+
+def _rows_placements(mesh, part: torch.Tensor, placements) -> list:
+    """A micro-batch's placements: the batch's data axes where its rows
+    divide over them, else (under the rule table) the batch rule's
+    fallback, as ``pspec_for`` picks for a batch of that many rows."""
+    if dctx.get_rules() is None:
+        return list(placements)
+    return dctx.placements_for(mesh, part.shape,
+                               ("batch",) + (None,) * (part.dim() - 1))
+
+
+def _split_rows(x: torch.Tensor, n_micro: int) -> list:
+    B = x.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch of {B} rows does not split into "
+                         f"{n_micro} microbatches")
+    m = B // n_micro
+    return [x[i * m:(i + 1) * m] for i in range(n_micro)]
 
 
 def _take_grads(leaves, acc_dtype) -> list:
@@ -107,17 +139,39 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
                                   or tcfg.optimizer == "adamw") \
         else torch.bfloat16
 
-    def loss_fn(params, micro):
+    def loss_fn(params, micro, gather=None):
         return backbone.train_loss(
             params, mcfg, micro, compute_dtype=cdtype, remat=tcfg.remat,
             moe_aux_weight=tcfg.moe_aux_weight,
-            moe_z_weight=tcfg.moe_z_weight)
+            moe_z_weight=tcfg.moe_z_weight, gather=gather)
 
     def grad_fn(params, micro):
-        """The loss and metrics (detached); the gradients into .grad."""
-        loss, metrics = loss_fn(params, micro)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        """The loss and metrics (detached); the gradients into .grad.
+        Under a mesh (DTensor parameters, a batch sharded over the data
+        axes) each rank runs the model on its batch shard, gathering each
+        layer's parameters where it runs the layer (``_Gather``; again in
+        remat's recompute, as FSDP re-gathers), and the loss it
+        differentiates is its share of the global token mean, so the
+        gradients' sum over the data axes is the single-process gradient.
+        The model runs with no mesh installed: it sees plain tensors, and
+        ``moe_ep`` computes as the dense ``ffn.moe``."""
+        data = _data_dims(micro)
+        if data is None:
+            loss, metrics = loss_fn(params, micro)
+            loss.backward()
+            return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        mesh = next(iter(micro.values())).device_mesh
+        local = {k: x.to_local() for k, x in micro.items()}
+        with dctx.mesh_context(None):      # the recompute runs in here too
+            loss, metrics = loss_fn(params, local, gather=lambda t: tree_map(
+                lambda p: _Gather.apply(p, data), t))
+            n = metrics["tokens"].detach()
+            total = _sum_over(n, mesh, data)
+            (loss * (n / total)).backward()
+        metrics = {k: total if k == "tokens" else
+                   _sum_over(v.detach() * (n / total), mesh, data)
+                   for k, v in metrics.items()}
+        return metrics["loss"], metrics
 
     def train_step(state: TrainState, batch: dict,
                    rng=None, micro_keep: Optional[torch.Tensor] = None):
@@ -126,9 +180,18 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
         micro_keep: optional [grad_accum] bool — straggler mask; missing
         microbatches are dropped and survivors HT-reweighted (unbiased).
         """
+        leaves = tree_leaves(state.params)
+        if not isinstance(leaves[0], DTensor):
+            return _step(state, batch, rng, micro_keep)
+        # every scalar (the lr, the HT weights, the clip scale) is the
+        # same on every rank: let it meet the DTensors as a replica
+        with implicit_replication():
+            return _step(state, batch, rng, micro_keep)
+
+    def _step(state, batch, rng, micro_keep):
         n_micro = tcfg.grad_accum
         leaves = tree_leaves(state.params)
-        device = leaves[0].device
+        device = _local(leaves[0]).device
         for p in leaves:
             p.grad = None
 
@@ -140,8 +203,7 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
                 if micro_keep is None else \
                 torch.as_tensor(micro_keep, device=device).bool()
             keep_frac = torch.mean(keep.float())
-            grads = [torch.zeros(p.shape, dtype=acc_dtype, device=device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=acc_dtype) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=device)
             metrics = None
             for i, mb in enumerate(_split_micro(batch, n_micro)):
@@ -174,7 +236,15 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
                 grads, state.sync, rng, cfgc)
             metrics = {**metrics, **cmetrics}
 
-        grads, gnorm = optim.clip_by_global_norm(grads, tcfg.grad_clip)
+        if acc_dtype == torch.float32:
+            grads, gnorm = optim.clip_by_global_norm(grads, tcfg.grad_clip)
+            grad_scale = None
+        else:
+            # a bfloat16 accumulator: Adafactor applies the clip's scale in
+            # float32 and keeps the product unrounded, as the reference's
+            # fused step does (optim.adafactor_update)
+            grad_scale, gnorm = optim.clip_scale(grads, tcfg.grad_clip)
+            grad_scale = grad_scale.to(acc_dtype)
         lr = optim.warmup_cosine(state.step, peak_lr=tcfg.learning_rate,
                                  warmup_steps=tcfg.warmup_steps,
                                  total_steps=total_steps)
@@ -190,13 +260,16 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
                     beta2=tcfg.beta2, eps=1e-8,
                     weight_decay=tcfg.weight_decay, step=state.step)
                 for p, m in zip(leaves, tree_leaves(master)):
-                    if m.data_ptr() != p.data_ptr():
+                    # a float32 parameter without a master copy is its
+                    # own master (updated in place already)
+                    if state.master is not None or p.dtype != torch.float32:
                         p.copy_(m)
                 master_out = master if state.master is not None else None
             else:
                 _, opt = optim.adafactor_update(
                     grads, state.opt, state.params, lr=lr,
-                    weight_decay=tcfg.weight_decay, step=state.step)
+                    weight_decay=tcfg.weight_decay, step=state.step,
+                    grad_scale=grad_scale)
                 master_out = None
 
         metrics = dict(metrics)
@@ -208,4 +281,48 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
         return new_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------- under a mesh
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _data_dims(batch: dict) -> Optional[tuple]:
+    """The mesh dims a DTensor batch is sharded over (its data axes), or
+    None for a plain batch."""
+    x = next(iter(batch.values()))
+    if not isinstance(x, DTensor):
+        return None
+    return tuple(i for i, pl in enumerate(x.placements) if pl.is_shard())
+
+
+def _sum_over(x: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """``x`` (a rank's 0-d value) summed over the mesh dims ``dims``."""
+    placements = [Partial() if i in dims else Replicate()
+                  for i in range(mesh.ndim)]
+    return collectives.whole(DTensor.from_local(x, mesh, placements,
+                                                run_check=False))
+
+
+class _Gather(torch.autograd.Function):
+    """A DTensor parameter gathered whole for the rank's compute; its
+    gradient, a rank's share over the data axes (every rank of the other
+    axes computing the same), reduced back onto the parameter's placements:
+    DTensor turns the data axes' ``Partial`` into a reduce-scatter where
+    the parameter is sharded and an all-reduce where it is replicated."""
+
+    @staticmethod
+    def forward(ctx, p, data: tuple):
+        ctx.mesh, ctx.placements, ctx.data = p.device_mesh, p.placements, \
+            data
+        return collectives.whole(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        placements = [Partial() if i in ctx.data else Replicate()
+                      for i in range(ctx.mesh.ndim)]
+        return DTensor.from_local(g.contiguous(), ctx.mesh, placements,
+                                  run_check=False).redistribute(
+            ctx.mesh, ctx.placements), None
 

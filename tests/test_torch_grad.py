@@ -330,10 +330,19 @@ def test_remat_runs_each_group_forward_twice():
 
 
 def test_ep_a2a_training_raises():
+    """Training through ``moe_impl="ep_a2a"`` raised until ``moe_ep`` got
+    its backward; it now trains.  Without a mesh ``moe_ep`` is the dense
+    ``ffn.moe``, so its loss and gradients equal the ``spmd`` model's
+    bit for bit (the ranks' backward is held in test_torch_train_mesh)."""
     run = base.load_smoke_config("qwen2-moe-a2.7b")
     cfg = dataclasses.replace(run.model, moe_impl="ep_a2a")
     params = backbone.init_train_params(cfg, torch.Generator().manual_seed(0),
                                         device="cpu")
     batch = torch_batch(make_batch(cfg, seed=1, seq=8))
-    with pytest.raises(NotImplementedError, match="moe_ep"):
-        backbone.train_loss(params, cfg, batch, compute_dtype=torch.float32)
+    grads = []
+    for c in (cfg, run.model):
+        loss, _ = backbone.train_loss(params, c, batch,
+                                      compute_dtype=torch.float32)
+        grads.append(torch.autograd.grad(loss, tree_leaves(params)))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
