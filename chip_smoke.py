@@ -220,16 +220,18 @@ failure raises (in a rank too) and the script exits non-zero.
    train rules (``launch.shardings.init_train_state``; 15 heads and 5 KV
    heads replicate on "model", ff and vocab shard), the batch sharded
    over "data"; (b) RecurrentGemma-2B at full width with one pattern
-   group (rec, rec, attn) the same way.  Each rank gathers every layer's
-   parameters and runs the model on its row with plain tensors, so
-   ``decay_scan`` and attention run whole on each rank and the "model"
-   axis repeats the compute.  Rank 0 then runs the same steps in one
-   process with the batch split as the data ranks split it (each row a
-   micro-batch: the witness) and whole.  Gates: every rank's launches
-   the plan's, its state on the card, its argument bytes equal to its
-   placements' count, the ranks' losses equal, and against the witness
-   the losses, every step's grad norm and the float32 masters' update
-   within ``MESH_LOSS_RTOL``, ``MESH_NORM_GAP`` and ``MESH_UPDATE_GAP``.
+   group (rec, rec, attn) the same way, and again computed in float32.
+   Each rank gathers every layer's parameters over "data" and runs the
+   model on its row tensor-parallel over "model": SmolLM's ff and vocab
+   split, its heads whole; RecurrentGemma's RG-LRU channels
+   (``decay_scan`` on 1280 of 2560) and its 10 heads against the whole
+   KV head split.  Rank 0 then runs the same steps in one process with
+   the batch split as the data ranks split it (each row a micro-batch:
+   the witness) and whole.  Gates: every rank's launches the plan's, its
+   state on the card, its argument bytes equal to its placements' count,
+   the ranks' losses equal, and against the witness the losses, every
+   step's grad norm and the float32 masters' update within
+   ``MESH_GATES`` of the run's compute dtype.
    Then the kernels' ops on DTensors through their sharding rules on the
    same 4 ranks: Qwen3-4B's attention with rows over "data" and heads
    over "model" (16 query and 4 KV heads a rank), RecurrentGemma's
@@ -239,6 +241,21 @@ failure raises (in a rank too) and the script exits non-zero.
    count differs).  (c) SmolLM on a 1-rank NCCL (1, 1) mesh, bit for bit
    one process's steps.  Collectives (``CommDebugMode``) and s/step are
    printed.
+14. Tensor parallelism over "model" (after phase 13), 4 gloo ranks
+   sharing the card: (a) Qwen3-4B at full width, 4 of 36 layers, 3 AdamW
+   steps (as phase 13's: bfloat16, and again in float32) on phase 13's
+   batch on ("data", "model") = (2, 2), each rank on its 16 heads, 4 KV
+   heads and half the ff and vocab, held to one process that splits the batch as the data
+   ranks do at phase 13's gates, with s/step and argument bytes against
+   the placements; (b) Qwen3-4B at full width and depth on (1, 4): one
+   process serves a 2 x 4096 prompt and 8 greedy steps first, then the
+   mesh does (8 heads, 2 KV heads, a quarter of ff and vocab and of every
+   cache's ``kv_seq`` slots a rank) fed the same tokens: each step's
+   logits within ``TP_LOGIT_REL_L2`` of one process's, any differing
+   greedy token a near tie, a decode step's collective bytes the same
+   every step and within ``_tp_decode_budget`` (O(B H D), no cache slot
+   moves); (c) each rank's attention and scan calls at its local shapes
+   against their plain versions.
 
 After phase 11 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
@@ -407,31 +424,46 @@ TRAIN_BLOCK_CASES = [(ARCH, "rec", "decay_scan"),
                      (ARCH, "attn", "flash_attention"),
                      ("mamba2-2.7b", "ssd", "decay_scan")]
 # (label, arch, steps, TrainConfig overrides besides warmup_steps=1)
-# phase 13's bounds.  The witness is one process on the card that splits
-# the batch as the 2 data ranks do: each row a micro-batch
-# (``grad_accum`` 2), its bf16 gradient from the same kernels at the same
-# shapes as a rank's, the two halves summed in float32, where the mesh
-# sums them in bf16 (a reduce-scatter).  So every gradient entry differs
-# by at most one bf16 rounding, 2^-9 of its size, and the global grad
-# norm by at most 2^-9; doubled for the float32 sums' order and for step
-# 2's weights: MESH_NORM_GAP 2^-8.  The norm is the gate that sees a
-# gradient's size: clipping (norms of 30-90 against a clip of 1) and
-# Adam's m/sqrt(v) both cancel a gradient scaled by a constant, so a
-# wrong 1/n or token share moves the norm alone.  Losses: steps 0 and 1
-# run on the initial weights (step 0's lr is 0); each row's forward is
-# the same computation, and what differs is the grouping of the
-# per-token float32 sums: 1e-5 (measured 8.7e-8 and 9.8e-8 against the
-# whole batch).  Step 2's loss also moves with the updates' difference:
-# within 1e-5 + MESH_UPDATE_GAP x |step 1's loss - step 2's|.  The float32
-# masters' move after 3 steps (L2 of the difference over L2 of the
-# witness's move): step 1's update is Adam's m/sqrt(v) on twice the same
-# clipped gradient, ~sign(g), alike in both but where |g| nears eps
-# (within 2^-8 there); step 2's gradient comes from weights that close and
-# its update mixes in both earlier moments, each entry within ~2^-8:
-# MESH_UPDATE_GAP 2^-7.  The whole batch in one process (``grad_accum``
-# 1) is printed beside it: in bf16 it differs by far more (the
-# embedding's gradient, scripts/torch_bf16_split_grads.py).
-MESH_LOSS_RTOL, MESH_NORM_GAP, MESH_UPDATE_GAP = 1e-5, 2.0 ** -8, 2.0 ** -7
+# Phase 13's and 14 (a)'s bounds, by compute dtype: (loss rtol, grad norm
+# gap, update gap).  The witness is one process on the card that splits
+# the batch as the 2 data ranks do: each row a micro-batch (``grad_accum``
+# 2), the two halves' gradients summed in float32.
+#
+# float32 (the extra runs): the mesh's split sums differ from the
+# witness's whole ones by float32 reassociation, so these are the bf16
+# bounds of a mesh whose "model" axis replicated (the split batch's only
+# difference a bf16 rounding of each gradient entry, 2^-9 of its size):
+# the grad norm within 2^-9, doubled for the sums' order and step 2's
+# weights: 2^-8.  The norm is the gate that sees a gradient's size:
+# clipping (norms of 30-90 against a clip of 1) and Adam's m/sqrt(v) both
+# cancel a gradient scaled by a constant, so a wrong 1/n or token share
+# moves the norm alone.  Losses: steps 0 and 1 run on the initial weights
+# (step 0's lr is 0): 1e-5.  Step 2's loss also moves with the updates'
+# difference: within rtol + update gap x |step 1's loss - step 2's|.  The
+# float32 masters' move after 3 steps (L2 of the difference over L2 of
+# the witness's move): Adam's m/sqrt(v), ~sign(g), alike where |g| is
+# well above its noise, each entry within ~2^-8: 2^-7.
+#
+# bfloat16 (the runs users train in): the "model" axis splits the
+# products, and each rank's column shard of a bf16 product, its partial
+# sums and its share of the backward's input gradient round at other
+# places than the witness's whole product, so more entries carry a bf16
+# rounding than the bound above counts.  These gates come from readings
+# (``scripts/torch_tp_gate_readings.py`` on the card): the largest gap of
+# the sound runs and the smallest of planted tensor-parallel faults (one
+# rank's partial sum of one row-parallel product dropped once a step; one
+# column-parallel product's input gradient left unsummed once a step),
+# each limit set between the two (NVIDIA H100 80GB HBM3, 700.00 W):
+# losses of steps 0-1, sound at most 2.73e-5 (SmolLM; Qwen3-4B 4.1e-6,
+# RecurrentGemma 3.6e-6), the dropped partial sum 2.63e-3: 1e-4; the
+# update, sound at most 2.89e-2 (SmolLM's 32 layers; RecurrentGemma
+# 1.05e-2, Qwen3-4B 1.15e-2), the unsummed gradient 0.109 and the dropped
+# partial sum 0.936 (Qwen3-4B): 2^-4.  The norm keeps 2^-8 (sound at most
+# 1.3e-4, the dropped partial sum 5.8e-2; the unsummed gradient, 7.4e-4,
+# shows in the update alone).
+TP_BF16_LOSS_RTOL, TP_BF16_UPDATE_GAP = 1e-4, 2.0 ** -4
+MESH_GATES = {"float32": (1e-5, 2.0 ** -8, 2.0 ** -7),
+              "bfloat16": (TP_BF16_LOSS_RTOL, 2.0 ** -8, TP_BF16_UPDATE_GAP)}
 TRAIN_RUNS = [("recurrentgemma", ARCH, 4, {}),
               ("smollm_adamw", "smollm-360m", 4, {}),
               ("smollm_adafactor", "smollm-360m", 2,
@@ -3447,10 +3479,10 @@ def serving_kernel_entry(name, replaces, launches, max_err, times, **extra):
 
 
 def new_path_launches(family_launches, kernel) -> dict:
-    """Phase 10's, 11's or 13's launch counts of ``kernel``, by model or
-    run, where it ran."""
+    """Phase 10's, 11's, 13's or 14's launch counts of ``kernel``, by model
+    or run, where it ran."""
     return {arch: n[kernel] for arch, n in family_launches.items()
-            if n[kernel]}
+            if n.get(kernel)}
 
 
 # ---------------------------------------- phase 13: training under a mesh
@@ -3459,9 +3491,16 @@ def new_path_launches(family_launches, kernel) -> dict:
 # RecurrentGemma-2B at full width with one pattern group (rec, rec, attn)
 # and micro-batches of the whole batch (its grad_accum of 2 would leave one
 # row a micro-batch, which 2 data ranks do not divide: the rules would
-# replicate it)
+# replicate it); both in bfloat16, as users train, at MESH_GATES'
+# bfloat16 bounds, and RecurrentGemma again computed in float32 at the
+# float32 bounds, a tighter check of the same split compute (SmolLM's
+# float32 run, 32 layers of host-staged collectives, is left out for the
+# script's time)
+MESH_F32 = {"compute_dtype": "float32"}
 MESH_RUNS = [("smollm", "smollm-360m", None, {}),
-             ("recurrentgemma_1group", ARCH, 3, {"grad_accum": 1})]
+             ("recurrentgemma_1group", ARCH, 3, {"grad_accum": 1}),
+             ("recurrentgemma_1group_f32", ARCH, 3,
+              {"grad_accum": 1, **MESH_F32})]
 MESH_SHAPE, MESH_STEPS, MESH_SEED = (2, 2), 3, 13
 MESH_TIMEOUT_S = 900.0
 
@@ -3731,25 +3770,56 @@ def _rel(a, b) -> float:
     return abs(a / b - 1)
 
 
+def train_gaps(head, split, run) -> tuple:
+    """A mesh run's record ``head`` against its witness ``split``: the
+    losses', grad norms' and masters' gaps beside ``run``'s compute
+    dtype's ``MESH_GATES``, and the gates they fail."""
+    rtol, norm_lim, update_lim = MESH_GATES[run.train.compute_dtype]
+    got, want = head["losses"], split["losses"]
+    loss_limit = [rtol] * 2 + [rtol + update_lim * abs(want[1] - want[2])
+                               / abs(want[2])]
+    loss_gap = [_rel(a, b) for a, b in zip(got, want)]
+    norm_gap = [_rel(a, b) for a, b in
+                zip(head["grad_norms"], split["grad_norms"])]
+    fails = []
+    if not all(np.isfinite(got + head["grad_norms"])):
+        fails.append("non-finite loss or grad norm")
+    if not all(g <= lim for g, lim in zip(loss_gap, loss_limit)):
+        fails.append(f"losses {got} vs the witness {want} (limits "
+                     f"{loss_limit})")
+    if max(norm_gap) > norm_lim:
+        fails.append(f"grad norms {head['grad_norms']} vs the witness "
+                     f"{split['grad_norms']} (limit {norm_lim})")
+    if split["update_gap"] > update_lim:
+        fails.append(f"update gap {split['update_gap']} (limit "
+                     f"{update_lim})")
+    return {"compute_dtype": run.train.compute_dtype, "loss_gap": loss_gap,
+            "loss_limit": loss_limit, "norm_gap": norm_gap,
+            "norm_limit": norm_lim, "update_gap": split["update_gap"],
+            "update_limit": update_lim}, fails
+
+
 def phase_mesh_train(device):
     """Phase 13: training under a mesh.  (a) SmolLM-360M at full width and
     depth, bf16 with a float32 master copy, AdamW, 3 steps on phase 12's
     batch (2 x 4096 tokens) on a ("data", "model") = (2, 2) mesh of 4
     gloo ranks sharing the card, with the train rules (SmolLM's 15 heads
     and 5 KV heads replicate on "model", its ff and vocab dims shard);
-    (b) RecurrentGemma-2B at full width, one pattern group, the same way.
-    Each rank runs the model on its data row with every layer's parameters
-    gathered (the "model" axis shards the state and repeats the compute);
-    so the kernels' sharding rules are driven apart: attention's rows over
-    "data" and heads over "model", the scan's channels over both, against
-    the plain calls (``_sharded_ops``).  (c) SmolLM on a 1-rank NCCL (1, 1)
+    (b) RecurrentGemma-2B at full width, one pattern group, the same way,
+    in bf16 and again computed in float32 (``MESH_RUNS``).  Each rank runs
+    the model on its data row, every layer's parameters gathered over
+    "data" and split over "model" (tensor parallelism: phase 14); the
+    kernels' DTensor sharding rules are driven apart: attention's rows
+    over "data" and heads over "model", the scan's channels over both,
+    against the plain calls (``_sharded_ops``).  (c) SmolLM on a 1-rank NCCL (1, 1)
     mesh, bitwise equal to one process.  Gates: the launches the plan's on
     every rank, the state on the card, each rank's argument bytes equal to
     its placements' count, the ranks' losses equal, and against the
     witness (one process, the batch split as the data ranks split it) the
-    losses, every step's grad norm and the masters' update within
-    MESH_LOSS_RTOL, MESH_NORM_GAP and MESH_UPDATE_GAP; the sharded ops as
-    ``SHARDED_ATTN``'s comment says; (c) bit for bit."""
+    losses, every step's grad norm and the masters' update within the
+    run's compute dtype's ``MESH_GATES``; the sharded ops as
+    ``SHARDED_ATTN``'s comment says; (c) bit for bit.  Every gate of (a)
+    and (b) is read before the record prints."""
     from repro_torch.distributed.spawn import run_ranks
 
     dev = str(device) if device.type != "cuda" \
@@ -3759,7 +3829,7 @@ def phase_mesh_train(device):
     ranks = run_ranks(phase13_rank, 4, {"device": dev}, backend="gloo",
                       device=dev, timeout_s=MESH_TIMEOUT_S)
     gloo_s = time.time() - t0
-    out = {}
+    out, fails_all = {}, []
     for label, arch, layers, overrides in MESH_RUNS:
         recs = [r[label] for r in ranks]
         head = recs[0]
@@ -3774,28 +3844,12 @@ def phase_mesh_train(device):
             check(r["on_card"], f"(13 {label}) rank {i}: state off the card")
             check(r["losses"] == head["losses"],
                   f"(13 {label}): ranks disagree on the loss")
-        split = head["split"]
-        got, want = head["losses"], split["losses"]
-        loss_limit = [MESH_LOSS_RTOL] * 2 + [
-            MESH_LOSS_RTOL + MESH_UPDATE_GAP * abs(want[1] - want[2])
-            / abs(want[2])]
-        loss_gap = [_rel(a, b) for a, b in zip(got, want)]
-        norm_gap = [_rel(a, b) for a, b in
-                    zip(head["grad_norms"], split["grad_norms"])]
-        check(all(np.isfinite(got + head["grad_norms"])),
-              f"(13 {label}): non-finite loss or grad norm")
-        check(all(g <= lim for g, lim in zip(loss_gap, loss_limit)),
-              f"(13 {label}): losses {got} vs the witness {want} "
-              f"(limits {loss_limit})")
-        check(max(norm_gap) <= MESH_NORM_GAP,
-              f"(13 {label}): grad norms {head['grad_norms']} vs the "
-              f"witness {split['grad_norms']}")
-        check(split["update_gap"] <= MESH_UPDATE_GAP,
-              f"(13 {label}): update gap {split['update_gap']}")
+        gaps, fails = train_gaps(head, head["split"],
+                                 mesh_run(arch, layers, overrides))
+        fails_all += [f"(13 {label}): {f}" for f in fails]
         out[label] = {"arch": arch, "layers": layers, **overrides,
                       "mesh": list(MESH_SHAPE), "ranks": 4,
-                      "backend": "gloo", "loss_gap": loss_gap,
-                      "loss_limit": loss_limit, "norm_gap": norm_gap,
+                      "backend": "gloo", **gaps,
                       "by_rank_argument_bytes": [r["argument_bytes"]
                                                  for r in recs],
                       "by_rank_step_s": [r["step_s"] for r in recs],
@@ -3832,9 +3886,464 @@ def phase_mesh_train(device):
                         "launches", "plan", "argument_bytes",
                         "collectives", "step_s")}
     emit(mesh_train={**out, "gloo_phase_s": gloo_s, "nccl_phase_s": nccl_s,
-                     "card": card})
+                     "card": card, "failed": fails_all})
+    check(not fails_all, "; ".join(fails_all))
     return {**{label: out[label]["launches"] for label, *_ in MESH_RUNS},
             "nccl_1x1": nc["launches"]}
+
+
+# ------------------------------ phase 14: tensor parallelism on "model"
+# (a) Qwen3-4B at full width, 4 of its 36 layers, trains 3 steps on a
+# ("data", "model") = (2, 2) mesh of 4 gloo ranks: each rank computes its
+# 16 of 32 heads, 4 of 8 KV heads, half the ff and half the vocab; held to
+# one process that splits the batch as the data ranks do at phase 13's
+# gates, in bfloat16 and again computed in float32 (``TP_TRAIN_RUNS``).
+# (b) Qwen3-4B at full width and depth serves on a (1, 4) mesh:
+# each rank its 8 heads, 2 KV heads, a quarter of ff and vocab, and a
+# quarter of every KV cache's slots (``kv_seq``), which a decode step
+# attends where they lie.  The one-process serve of the same weights runs
+# first; the mesh's decode is fed its tokens, so each step's logits meet.
+TP_TRAIN = ("qwen3-4b", 4)
+TP_TRAIN_RUNS = [("bf16", {"grad_accum": 1}),
+                 ("f32", {"grad_accum": 1, **MESH_F32})]
+TP_SERVE, TP_SERVE_MESH, TP_DECODE_STEPS = "qwen3-4b", (1, 4), 8
+TP_SEED = 14
+TP_TIMEOUT_S = 600.0
+# The mesh's logits against one process's, relative L2 a step: both are
+# bfloat16 computations of the same logits that round at different places
+# (a rank's column shard of a product can take another cuBLAS kernel, so
+# its float32 sums add in another order before the one rounding; the
+# row-parallel partial sums meet in float32 before theirs, the attention
+# kernel runs each head alone).  The limit lies between readings of
+# ``scripts/torch_tp_gate_readings.py`` (NVIDIA H100 80GB HBM3, 700.00
+# W): the sound run at most 0.0207 a step (the same digits in every run:
+# the computation is deterministic), planted faults at least 0.0299 (one
+# layer's decode leaving out the last rank's cache slots) and 0.151 (one
+# rank's partial sum of one layer's row-parallel product dropped).  A
+# greedy token that differs is a near tie: one process's logit gap
+# between the two tokens at most twice the largest logit difference of
+# its row.
+TP_LOGIT_REL_L2 = 0.025
+
+
+def _tp_serve_params(run, device, mesh, rules):
+    """Qwen3-4B's seeded bfloat16 weights in the JAX layout, each leaf
+    drawn whole (the one-process draws, in the same order) and cut at once
+    to this rank's shard: no rank holds the whole model."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import context as dctx
+    from repro_torch.models import backbone, common
+
+    gen = torch.Generator(device=device).manual_seed(TP_SEED)
+
+    def one(spec):
+        x = common.init_param(spec, gen, torch.bfloat16, device)
+        return distribute_tensor(x, mesh, dctx.placements_for(
+            mesh, x.shape, spec.logical_axes(), rules), src_data_rank=None)
+    return common.map_specs(one, backbone.train_specs(run.model))
+
+
+def tp_serve_reference(device):
+    """(b)'s one-process serve: the same seeded weights whole on the card,
+    a 2 x 4096 prefill and 8 greedy steps; the logits of each step (on the
+    host), the tokens fed, the seconds.  The weights are freed after."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.models import backbone, common
+
+    run = load_config(TP_SERVE)
+    gen = torch.Generator(device=device).manual_seed(TP_SEED)
+    params = backbone.serving_params(common.map_specs(
+        lambda s: common.init_param(s, gen, torch.bfloat16, device),
+        backbone.train_specs(run.model)), run.model)
+    prompts = torch.from_numpy(np.random.default_rng(TP_SEED).integers(
+        0, run.model.vocab_size, (SERVE_BATCH, PROMPT))).to(device)
+    with torch.inference_mode():
+        drive_request(run, params, prompts, 1)         # warm-up request
+        logits, fed, _, pre_s, dec_s, launches = drive_request(
+            run, params, prompts, TP_DECODE_STEPS)
+    out = {"logits": [x.float().cpu() for x in logits],
+           "fed": [t.cpu() for t in fed], "prompts": prompts.cpu(),
+           "prefill_s": pre_s, "decode_s": dec_s, "launches": launches}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_dtype(name: str) -> torch.dtype:
+    """A (c) attention shape's dtype: its run's compute dtype."""
+    return torch.float32 if name.endswith("_f32") else torch.bfloat16
+
+
+def _tp_kernels(device, shapes) -> dict:
+    """(c) on a rank: each kernel's call at this rank's local shapes on
+    the TP path, against its plain version on the same inputs: attention
+    forward and backward at (a)'s local heads (bfloat16, and float32 as
+    (a)'s float32 run), the forward at (b)'s prefill, the scan and its
+    backward at phase 13 (b)'s local RG-LRU channels."""
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(TP_SEED + 1)
+    out = {}
+    for name, (B, H, Kh, S, D) in shapes["attention"].items():
+        dt = _tp_dtype(name)
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device,
+                                     dtype=dt)
+        q, k, v = rnd(B, H, S, D), rnd(B, Kh, S, D), rnd(B, Kh, S, D)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True,
+                                         return_lse=True)
+        wo, wl = ref.attention_ref(q, k, v, causal=True, return_lse=True)
+        rec = {"shape": [B, H, Kh, S, D], "dtype": str(dt).split(".")[-1],
+               "o_normwise": normwise(o, wo),
+               "lse_max_abs": float((lse - wl).abs().max()),
+               "o_within_limit": bool(((o.float() - wo.float()).abs()
+                                       <= attention_limit(wo)).all())}
+        if name.startswith("train"):
+            do = rnd(B, H, S, D)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=True)
+            want = ref.attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         o.float(), lse, do.float(),
+                                         causal=True)
+            rec["bwd_normwise"] = {n: normwise(g.float(), w) for n, g, w in
+                                   zip(("dq", "dk", "dv"), got, want)}
+        out[name] = rec
+        del q, k, v
+    T, C = shapes["scan"]
+    a = torch.rand(T, C, generator=gen, device=device)
+    u, g = (torch.randn(T, C, generator=gen, device=device)
+            for _ in range(2))
+    h = ds.decay_scan_cuda(a, u)
+    da, du, _ = ds.decay_scan_bwd_cuda(a, h, g)
+    wda, wdu, _ = ref.decay_scan_bwd_ref(a, h, g)
+    out["scan"] = {"shape": [T, C],
+                   "bitwise": bool(torch.equal(h, ref.decay_scan_ref(a, u))),
+                   "bwd_bitwise": bool(torch.equal(da, wda)
+                                       and torch.equal(du, wdu))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_kernel_times(device, shapes) -> dict:
+    """Rank 0 alone (the other ranks wait): each kernel at its local shape
+    on the TP path, its plain version, the library call where there is
+    one, and the bound (the larger of the bytes over the memory rate and
+    the operations over the dtype's peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decay_scan as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(TP_SEED + 2)
+    out = {}
+    for name, (B, H, Kh, S, D) in shapes["attention"].items():
+        dt = _tp_dtype(name)
+        q, k, v = (torch.randn(B, h, S, D, generator=gen, device=device,
+                               dtype=dt) for h in (H, Kh, Kh))
+        ops = 4 * D * B * H * window_pairs(S, S, True, 0)
+        nbytes = q.element_size() * D * (2 * B * H * S + 2 * B * Kh * S)
+        rate = F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+        t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+        out[name] = {
+            "shape": [B, H, Kh, S, D], "dtype": str(dt).split(".")[-1],
+            "ms": cuda_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=True), 10),
+            "plain_ms": cuda_ms(lambda: ref.attention_ref(
+                q, k, v, causal=True), 2),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        del q, k, v
+    T, C = shapes["scan"]
+    a = torch.rand(T, C, generator=gen, device=device)
+    u = torch.randn(T, C, generator=gen, device=device)
+    ms, by = bound(12 * T * C, 2 * T * C)
+    out["scan"] = {"shape": [T, C],
+                   "ms": cuda_ms(lambda: ds.decay_scan_cuda(a, u), 10),
+                   "plain_ms": cuda_ms(lambda: ref.decay_scan_ref(a, u), 1),
+                   "library_ms": None, "bound_ms": ms, "bound_by": by}
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(device, overrides) -> dict:
+    """(a) on a rank: Qwen3-4B's steps on the (2, 2) mesh with ``overrides``
+    (``TP_TRAIN_RUNS``); rank 0 adds the witness's ("split")."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import synthetic_batch
+
+    arch, layers = TP_TRAIN
+    run = mesh_run(arch, layers, overrides)
+    m22 = make_mesh(MESH_SHAPE, ("data", "model"), device_type=device.type)
+    data = synthetic_batch(run.model, np.random.default_rng(MESH_SEED),
+                           TRAIN_BATCH, TRAIN_SEQ, device)
+    rec, masters = _steps_on_mesh(run, device, data, m22)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        one = dc.replace(run, train=dc.replace(run.train,
+                                               grad_accum=MESH_SHAPE[0]))
+        losses, norms, want, before = _steps_one_process(one, device, data)
+        rec["split"] = {"losses": losses, "grad_norms": norms,
+                        "update_gap": _update_gap(masters, want, before)}
+        del want, before
+    del masters, data
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def tp_serve(device, p) -> dict:
+    """(b) on a rank: Qwen3-4B's prefill and decode on the (1, 4) mesh,
+    fed the one-process serve's tokens (``p``); each step's logits on rank
+    0, every decode step's collective bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import load_config
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import make_serve_step
+
+    run = load_config(TP_SERVE)
+    m14 = make_mesh(TP_SERVE_MESH, ("data", "model"),
+                    device_type=device.type)
+    rules = sharding.make_rules(fsdp=False)
+    with dctx.mesh_context(m14, rules), torch.inference_mode():
+        params = _tp_serve_params(run, device, m14, rules)
+        _p11_sync(device)
+        prompts = p["prompts"].to(device)
+        fed = [t.to(device) for t in p["fed"]]
+        prefill = make_serve_step(run, "prefill",
+                                  max_len=PROMPT + TP_DECODE_STEPS)
+        decode = make_serve_step(run, "decode")
+        _reset_mesh_counts()
+        t0 = time.perf_counter()
+        logits, state = prefill(params, prompts)
+        _p11_sync(device)
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = fa.launches
+        step_logits, moved, step_s = [logits.float().cpu()], [], []
+        for tok in fed:
+            collectives.tp_bytes.clear()
+            t0 = time.perf_counter()
+            logits, state = decode(params, state, tok)
+            _p11_sync(device)
+            step_s.append(time.perf_counter() - t0)
+            moved.append(dict(collectives.tp_bytes))
+            step_logits.append(logits.float().cpu())
+        cache = state.layers[0].k
+        out = {
+            "prefill_s": prefill_s, "decode_step_s": step_s,
+            "prefill_launches": prefill_launches,
+            "decode_launches": fa.launches - prefill_launches,
+            "decode_bytes": moved,
+            "cache_slice": list(cache.shape),
+            "cache_bytes_per_layer": 2 * cache.numel() * cache.element_size(),
+            "cache_on_card": all(c.k.device == device for c in state.layers),
+            "logits": step_logits if dist.get_rank() == 0 else None}
+        del params, state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def phase14_rank(mesh, p):
+    """(a), (b), (c) on each of 4 gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    device = torch.device(p["device"])
+    out = {"train": {label: tp_train(device, overrides)
+                     for label, overrides in TP_TRAIN_RUNS},
+           "serve": tp_serve(device, p)}
+    # (c) the kernels at this rank's local shapes, then timed on rank 0
+    out["kernels"] = _tp_kernels(device, p["kernel_shapes"])
+    dist.barrier()
+    if dist.get_rank() == 0 and device.type == "cuda":
+        out["kernel_times"] = _tp_kernel_times(device, p["kernel_shapes"])
+    dist.barrier()
+    return out
+
+
+def _tp_decode_budget(cfg, B) -> int:
+    """A decode step's tensor-parallel payload bytes, O(B H D) a layer
+    whatever the cache: the heads' queries and the new token's K/V (bf16),
+    the rows' statistics and the combined output (float32), the two
+    output sums and the embedding's (float32, widened), the head_dim
+    norms' shards and the vocab-split logits (float32), each counted at
+    its largest rank's share or whole."""
+    H, Kh, D, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    layer = B * (H * D * 2 + 2 * Kh * D * 2 + H * 4 + H * D * 4 + 2 * d * 4) \
+        + 2 * D * 2
+    from repro_torch.models import backbone
+    return cfg.num_layers * layer + B * d * 4 + \
+        B * backbone.padded_vocab(cfg) * 4
+
+
+def logit_gaps(got, want, V) -> tuple:
+    """The mesh's logits of each step against one process's: relative L2
+    a step, the greedy tokens that differ, and the gates failed (a
+    non-finite logit, a differing token that is no near tie, a step past
+    ``TP_LOGIT_REL_L2``)."""
+    rel, flips, fails = [], [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g[:, :V], w[:, :V]
+        rel.append(float((g - w).norm() / w.norm()))
+        if not bool(torch.isfinite(g).all()):
+            fails.append(f"step {i}: non-finite logits")
+        err = (g - w).abs().max(-1).values
+        for b in range(g.shape[0]):
+            mine, theirs = int(g[b].argmax()), int(w[b].argmax())
+            if mine != theirs:
+                gap = float(w[b, theirs] - w[b, mine])
+                flips.append({"step": i, "row": b, "gap": gap,
+                              "max_abs_err": float(err[b])})
+                if gap > 2 * float(err[b]):
+                    fails.append(f"step {i} row {b}: a greedy token differs "
+                                 f"by a logit gap {gap}, not a near tie "
+                                 f"(max error {float(err[b])})")
+    if max(rel) > TP_LOGIT_REL_L2:
+        fails.append(f"logits vs one process: relative L2 {rel} (limit "
+                     f"{TP_LOGIT_REL_L2})")
+    return rel, flips, fails
+
+
+def phase_tp(device):
+    """Phase 14: tensor parallelism over the mesh's "model" axis, 4 gloo
+    ranks sharing the card.  (a) Qwen3-4B at full width, 4 of 36 layers,
+    3 AdamW steps (bf16 parameters, float32 masters; computed in bf16 and
+    again in float32: ``TP_TRAIN_RUNS``) on phase 13's batch on (2, 2):
+    the launches the plan's on every rank, argument bytes the placements',
+    the ranks' losses equal, and against one process that splits the batch
+    as the data ranks do the losses, grad norms and masters' update within
+    phase 13's gates (``MESH_GATES`` of the run's compute dtype).  (b) Qwen3-4B at full width and depth on (1, 4): a
+    2 x 4096 prefill (36 attention launches a rank, on its 8 heads) and 8
+    decode steps over caches split by ``kv_seq``, fed one process's tokens:
+    each step's logits within ``TP_LOGIT_REL_L2`` of one process's, a
+    differing greedy token a near tie, every decode step's collective
+    bytes the same and within ``_tp_decode_budget`` (no slot moves), the
+    caches on the card.  (c) each rank's kernel calls at its local shapes
+    against their plain versions."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.distributed.spawn import run_ranks
+
+    dev = str(device) if device.type != "cuda" \
+        else f"cuda:{device.index or 0}"
+    card = card_name_and_limit()
+    fails = []
+
+    def gate(ok, what):     # every gate read before the record prints
+        if not ok:
+            fails.append(what)
+    t0 = time.time()
+    ref = tp_serve_reference(device)
+    ref_s = time.time() - t0
+    cfg = load_config(TP_SERVE).model
+    shapes = {"attention": {
+        **{name: (TRAIN_BATCH // MESH_SHAPE[0], cfg.num_heads // 2,
+                  cfg.num_kv_heads // 2, TRAIN_SEQ, cfg.head_dim)
+           for name in ("train", "train_f32")},
+        "prefill": (SERVE_BATCH, cfg.num_heads // TP_SERVE_MESH[1],
+                    cfg.num_kv_heads // TP_SERVE_MESH[1], PROMPT,
+                    cfg.head_dim)},
+        "scan": (TRAIN_SEQ, TRAIN_BATCH // MESH_SHAPE[0] * 2560
+                 // MESH_SHAPE[1])}
+    t0 = time.time()
+    ranks = run_ranks(phase14_rank, 4, {
+        "device": dev, "prompts": ref["prompts"], "fed": ref["fed"],
+        "kernel_shapes": shapes}, backend="gloo", device=dev,
+        timeout_s=TP_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    out = {"card": card, "reference_s": ref_s, "ranks_s": ranks_s}
+
+    # (a)
+    out["train"], train_launches = {}, {}
+    for label, overrides in TP_TRAIN_RUNS:
+        recs = [r["train"][label] for r in ranks]
+        head = recs[0]
+        for i, r in enumerate(recs):
+            gate(r["launches"] == r["plan"], f"(14 a {label}) rank {i}: "
+                 f"launches {r['launches']}, plan {r['plan']}")
+            gate(r["argument_bytes"] == r["placement_bytes"],
+                 f"(14 a {label}) rank {i}: argument bytes != placements'")
+            gate(r["on_card"], f"(14 a {label}) rank {i}: state off the "
+                 f"card")
+            gate(r["losses"] == head["losses"],
+                 f"(14 a {label}): ranks disagree on the loss")
+        gaps, bad = train_gaps(head, head["split"],
+                               mesh_run(*TP_TRAIN, overrides))
+        for f in bad:
+            gate(False, f"(14 a {label}): {f}")
+        train_launches[f"train_{label}"] = head["launches"]
+        out["train"][label] = {
+            "arch": TP_TRAIN[0], "layers": TP_TRAIN[1], **overrides,
+            "mesh": list(MESH_SHAPE), **gaps,
+            "by_rank_step_s": [r["step_s"] for r in recs],
+            "by_rank_argument_bytes": [r["argument_bytes"] for r in recs],
+            **{k: head[k] for k in ("losses", "grad_norms", "split",
+                                    "launches", "plan", "placement_bytes",
+                                    "collectives")}}
+
+    # (b)
+    srv = [r["serve"] for r in ranks]
+    n_attn = kernel_launches(cfg)["flash_attention"]
+    budget = _tp_decode_budget(cfg, SERVE_BATCH)
+    for i, r in enumerate(srv):
+        gate(r["prefill_launches"] == n_attn, f"(14 b) rank {i}: "
+              f"{r['prefill_launches']} attention launches a prefill, "
+              f"not {n_attn}")
+        gate(r["cache_on_card"], f"(14 b) rank {i}: a cache left the card")
+        per_step = [sum(b.values()) for b in r["decode_bytes"]]
+        gate(len(set(per_step)) == 1 and per_step[0] <= budget,
+              f"(14 b) rank {i}: decode step bytes {per_step}, budget "
+              f"{budget}")
+    rel, flips, bad = logit_gaps(srv[0]["logits"], ref["logits"],
+                                 cfg.vocab_size)
+    for f in bad:
+        gate(False, f"(14 b) {f}")
+    out["serve"] = {"arch": TP_SERVE, "mesh": list(TP_SERVE_MESH),
+                    "prompt": [SERVE_BATCH, PROMPT],
+                    "steps": TP_DECODE_STEPS, "rel_l2_by_step": rel,
+                    "rel_l2_limit": TP_LOGIT_REL_L2, "flips": flips,
+                    "decode_bytes_budget": budget,
+                    "decode_bytes_by_rank": [r["decode_bytes"][0]
+                                             for r in srv],
+                    "cache_slice": srv[0]["cache_slice"],
+                    "cache_bytes_per_layer": srv[0]["cache_bytes_per_layer"],
+                    "prefill_s_by_rank": [r["prefill_s"] for r in srv],
+                    "decode_step_s_rank0": srv[0]["decode_step_s"],
+                    "one_process": {k: ref[k] for k in
+                                    ("prefill_s", "decode_s", "launches")}}
+
+    # (c)
+    kern = [r["kernels"] for r in ranks]
+    for i, k in enumerate(kern):
+        for name, rec in k.items():
+            if name == "scan":
+                gate(rec["bitwise"] and rec["bwd_bitwise"], f"(14 c) rank "
+                      f"{i}: decay_scan at {rec['shape']} != plain")
+                continue
+            gate(rec["o_within_limit"], f"(14 c) rank {i}: attention "
+                  f"{name} at {rec['shape']} outside its limit")
+            for n, e in rec.get("bwd_normwise", {}).items():
+                gate(e <= TRAIN_ATTN_TOL[_tp_dtype(name)], f"(14 c) rank "
+                      f"{i}: {n} at {rec['shape']} off by {e}")
+    out["kernels"] = {"shapes": shapes, "by_rank": kern,
+                      "times_rank0": ranks[0].get("kernel_times")}
+    out["failed"] = fails
+    emit(tensor_parallel=out)
+    check(not fails, "; ".join(fails))
+    return {**train_launches,
+            "serve_prefill": {"flash_attention": srv[0]["prefill_launches"]}}
 
 
 def main() -> int:
@@ -3888,6 +4397,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = phase_mesh_train(device)
     emit(mesh_train_phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tp_launches = phase_tp(device)
+    emit(tp_phase_s=time.perf_counter() - t0)
     backends = {b: sdpa_backends(device, b) for b in (1, SERVE_BATCH)}
     dense_backends = sdpa_dense_backends(device)
     emit(sdpa_backends=backends, sdpa_dense_backends=dense_backends)
@@ -3933,6 +4445,7 @@ def main() -> int:
             launches_families=new_path_launches(family_launches,
                                                 "decay_scan"),
             launches_mesh=new_path_launches(mesh_launches, "decay_scan"),
+            launches_tp=new_path_launches(tp_launches, "decay_scan"),
             families=serving_times["decay_scan"]["mamba2-2.7b"]),
         serving_kernel_entry(
             "flash_attention", "src/repro/kernels/flash_attention.py:37",
@@ -3946,12 +4459,14 @@ def main() -> int:
                                                 "flash_attention"),
             launches_mesh=new_path_launches(mesh_launches,
                                             "flash_attention"),
+            launches_tp=new_path_launches(tp_launches, "flash_attention"),
             families={arch: {**serving_times["flash_attention"][arch],
                              "library_backend": dense_backends[arch][
                                  "default"]}
                       for arch, *_ in model_attention_shapes()}),
         *({**e, "launches_mesh": new_path_launches(mesh_launches,
-                                                    e["name"])}
+                                                    e["name"]),
+           "launches_tp": new_path_launches(tp_launches, e["name"])}
           for e in train_kernel_entries(train_worst, train_times,
                                         train_runs))])
     emit(ok=True, device={"platform": "gpu",

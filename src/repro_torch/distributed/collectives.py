@@ -18,6 +18,19 @@ the write count, so floats (−0.0 included) cross the mesh bit for bit.
 ``all_to_all``, ``gather_cat`` and ``mean_over`` serve ``models/moe_ep.py``
 (the JAX ``lax.all_to_all``, the gather of ``shard_map``'s output and
 ``lax.pmean``); ``all_to_all_calls`` counts the all-to-alls.
+
+The tensor-parallel collectives (the last section) run over the mesh's
+``"model"`` group as functional collectives (``_c10d_functional``): on
+fake tensors (the dry-run) they move no byte and read no value, and
+``launch.hlo_analysis`` counts them; under gloo a CUDA tensor is staged
+through the host, where gloo's collectives work.  Sums of bfloat16 run in
+float32 and are rounded once.  ``copy_to_model`` / ``reduce_from_model``
+are Megatron's pair (identity forward and all-reduce backward before a
+column-parallel product; all-reduce forward and identity backward after a
+row-parallel one), ``gather_model`` / ``scatter_model`` /
+``reduce_scatter_model`` move one dim, and ``combine_softmax`` merges the
+ranks' partial attention over a ``kv_seq``-sharded cache by log-sum-exp.
+``tp_bytes`` counts each kind's payload bytes since the last reset.
 """
 from __future__ import annotations
 
@@ -228,6 +241,20 @@ def _on_host(x, twin):
                               stride=x.stride())
 
 
+def local_part(x, placements) -> torch.Tensor:
+    """This rank's local tensor of the DTensor ``x`` redistributed to
+    ``placements`` (one a mesh dim), as a plain tensor; staged through
+    the host where ``whole`` is."""
+    placements = list(placements)
+    if list(x.placements) == placements:
+        return x.to_local()
+    twin = _host_twin(x.device_mesh)
+    if twin is None:
+        return x.redistribute(x.device_mesh, placements).to_local()
+    return _on_host(x, twin).redistribute(twin, placements).to_local().to(
+        x.to_local().device)
+
+
 def whole(x) -> torch.Tensor:
     """A DTensor's whole value on every rank (``full_tensor``: shards
     gathered, partial sums reduced), as a plain tensor.
@@ -242,3 +269,178 @@ def whole(x) -> torch.Tensor:
     if twin is None:
         return x.full_tensor()
     return _on_host(x, twin).full_tensor().to(x.to_local().device)
+
+
+# ------------------------------------------------ tensor parallelism
+tp_bytes: dict = {}    # kind -> payload bytes of the TP collectives
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    tp_bytes[kind] = tp_bytes.get(kind, 0) + x.numel() * x.element_size()
+
+
+def _funcol(name: str, x: torch.Tensor, group, *args) -> torch.Tensor:
+    """One functional collective of ``group`` on ``x``: staged through the
+    host under gloo with a CUDA tensor, on ``x``'s device otherwise."""
+    stage = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    xs = (x.cpu() if stage else x).contiguous()
+    f = torch.ops._c10d_functional
+    out = f.wait_tensor(getattr(f, name)(xs, *args, group.group_name))
+    return out.to(x.device) if stage else out
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def all_reduce_model(x: torch.Tensor, group, op: str = "sum"
+                     ) -> torch.Tensor:
+    """``x`` reduced (``"sum"`` or ``"max"``) over ``group``, on every
+    rank."""
+    _count("all-reduce", x)
+    return _funcol("all_reduce", _wide(x), group, op).to(x.dtype)
+
+
+def all_gather_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group rank order."""
+    _count("all-gather", x)
+    n = group.size()
+    y = _funcol("all_gather_into_tensor", x.movedim(dim, 0), group, n)
+    return y.movedim(0, dim)
+
+
+def reduce_scatter_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` summed over ``group``, this rank keeping its contiguous chunk
+    of ``dim``."""
+    _count("reduce-scatter", x)
+    n = group.size()
+    y = _funcol("reduce_scatter_tensor", _wide(x).movedim(dim, 0), group,
+                "sum", n)
+    return y.movedim(0, dim).to(x.dtype)
+
+
+def _chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, r = group.size(), dist.get_rank(group)
+    m = x.shape[dim] // n
+    return x.narrow(dim, r * m, m)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_model(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_model(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_model(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_model(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, sum_grad):
+        ctx.group, ctx.dim, ctx.sum_grad = group, dim, sum_grad
+        return all_gather_model(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            return reduce_scatter_model(g, ctx.group, ctx.dim), None, \
+                None, None
+        return _chunk(g, ctx.group, ctx.dim).contiguous(), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _chunk(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_model(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_model(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_model(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient summed over ``group``
+    (a replicated input of rank-local compute)."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: the ranks' partial sums ``x`` summed over ``group``;
+    the gradient passes as it is (every rank holds the same)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def sum_in_region(x: torch.Tensor, group) -> torch.Tensor:
+    """A sum over ``group`` whose result feeds rank-local compute again
+    (a norm's statistics over sharded channels): all-reduce both ways."""
+    return x if group is None else _SumBoth.apply(x, group)
+
+
+def gather_model(x: torch.Tensor, group, dim: int,
+                 sum_grad: bool = False) -> torch.Tensor:
+    """The ranks' chunks of ``dim`` gathered whole.  The gradient is this
+    rank's chunk of it (the whole feeds the same compute on every rank),
+    or with ``sum_grad`` the chunk of its sum over ``group`` (the whole
+    feeds rank-local compute)."""
+    return x if group is None else _Gather.apply(x, group, dim, sum_grad)
+
+
+def scatter_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's contiguous chunk of ``dim`` (of a tensor every rank
+    holds whole); the gradient gathered."""
+    return x if group is None else _Scatter.apply(x, group, dim)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, group, dim: int
+                            ) -> torch.Tensor:
+    """The ranks' partial sums ``x`` summed, this rank keeping its chunk
+    of ``dim``; the gradient gathered."""
+    return x if group is None else _ReduceScatter.apply(x, group, dim)
+
+
+def combine_softmax(o: torch.Tensor, lse: torch.Tensor, group
+                    ) -> torch.Tensor:
+    """Attention over keys split between the ranks of ``group``: each rank
+    passes its keys' normalised output ``o`` [..., D] and their rows'
+    log-sum-exp ``lse`` [...] (float32); every rank gets the output over
+    all keys, each rank's ``o`` weighted by ``exp(lse_r - lse)``.  Moves
+    the rows' statistics and one output, never a key."""
+    every = all_gather_model(lse[None], group, 0)          # [n, ...]
+    total = torch.logsumexp(every, dim=0)
+    w = torch.exp(lse - total)
+    return all_reduce_model(o * w[..., None], group)

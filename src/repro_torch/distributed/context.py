@@ -13,6 +13,16 @@ a tuple of names, or None), exactly as the reference's ``PartitionSpec``;
 ``with_sharding_constraint``).  Code that spreads its own work reads the
 mesh as well: ``models.moe_ep`` puts its experts on the mesh's ``"model"``
 dim.  The context is per thread, as the reference's.
+
+Tensor parallelism has a context of its own (``tp_context``): the train
+and serve steps install it around the model, which then runs on plain
+tensors, each rank on its shard of every product the rules split over
+``"model"`` (``local_slice`` says which slice of a logical axis is the
+rank's), with the collectives of ``distributed.collectives`` where GSPMD
+would put them.  It is apart from ``mesh_context`` so that the model's
+own ``get_mesh`` readers (``moe_ep``) keep their gathered compute.
+Under the ``seq_parallel`` rules ``shard`` is where the residual stream's
+sequence is scattered over ``"model"`` (``collectives.scatter_model``).
 """
 from __future__ import annotations
 
@@ -26,7 +36,11 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.distributed.sharding import mesh_sizes
 
 __all__ = ["set_mesh", "get_mesh", "get_rules", "mesh_context",
-           "resolve_axis", "pspec_for", "placements_for", "shard"]
+           "resolve_axis", "pspec_for", "placements_for", "shard",
+           "tp_context", "tp_state", "model_size", "model_rank",
+           "model_group", "split_model_dim", "local_slice", "is_local",
+           "seq_parallel",
+           "sequence", "sp_active", "recompute_context"]
 
 _STATE = threading.local()
 
@@ -151,21 +165,167 @@ def placements_for(mesh: DeviceMesh, shape: Sequence[int],
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """Annotate an activation with logical axes: under a mesh and rules a
     DTensor is redistributed to the placements they give (what
-    ``with_sharding_constraint`` asks of XLA); otherwise, or for a plain
-    tensor, ``x`` comes back as it is.
+    ``with_sharding_constraint`` asks of XLA).
 
-    The port's train and serve steps run the model on gathered plain
-    tensors with no mesh installed (``train.trainer``, ``serving.engine``),
-    so on every path of the port these calls return ``x`` unchanged: they
-    mark where the reference constrains its activations, and act once a
-    step runs the model on DTensor activations."""
-    mesh, rules = get_mesh(), get_rules()
-    if mesh is None or rules is None:
-        return x
+    A plain tensor comes back as it is, with one exception: under a
+    tensor-parallel context whose rules shard ``"seq"`` over ``"model"``
+    (``make_rules(seq_parallel=True)``), the residual stream ``("batch",
+    "seq", None)`` at the step's whole sequence length (``tp_state``'s
+    ``seq_len``) is scattered to the rank's rows, the backward gathering
+    them (Megatron's sequence parallelism: each block gathers the rows on
+    entry and reduce-scatters its output).  Inside a block the
+    annotations of tensor-parallel activations stay no-ops: the rank
+    holds its heads or channels there, as the weights' placements give."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
+    st = tp_state()
+    if st is not None and not isinstance(x, DTensor):
+        if tuple(logical_axes) == ("batch", "seq", None) \
+                and st.seq_len is not None and x.shape[1] == st.seq_len \
+                and seq_parallel(st.seq_len):
+            from repro_torch.distributed import collectives
+            return collectives.scatter_model(x, model_group(), 1)
+        return x
+    mesh, rules = get_mesh(), get_rules()
+    if mesh is None or rules is None or not isinstance(x, DTensor):
         return x
     want = placements_for(mesh, x.shape, logical_axes, rules)
     if list(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+# ------------------------------------------------ tensor parallelism
+class TPState:
+    """The installed tensor-parallel context: the mesh, its rule table and
+    the step's whole sequence length (for ``shard``'s scatter)."""
+
+    def __init__(self, mesh: DeviceMesh, rules: dict):
+        self.mesh, self.rules, self.seq_len = mesh, rules, None
+        names = tuple(mesh.mesh_dim_names or ())
+        self.model_dim = names.index("model") if "model" in names else None
+
+    @property
+    def size(self) -> int:
+        return 1 if self.model_dim is None else \
+            int(self.mesh.mesh.shape[self.model_dim])
+
+
+def tp_state() -> Optional[TPState]:
+    """The installed tensor-parallel context, or None (also where the mesh
+    has no ``"model"`` axis, or one of size 1)."""
+    st = getattr(_STATE, "tp", None)
+    return st if st is not None and st.size > 1 else None
+
+
+@contextlib.contextmanager
+def tp_context(mesh: Optional[DeviceMesh], rules: Optional[dict]):
+    """Run the block's model code tensor-parallel over ``mesh``'s
+    ``"model"`` axis under ``rules`` (nothing changes without either)."""
+    prev = getattr(_STATE, "tp", None)
+    _STATE.tp = None if mesh is None or rules is None else \
+        TPState(mesh, rules)
+    try:
+        yield _STATE.tp
+    finally:
+        _STATE.tp = prev
+
+
+@contextlib.contextmanager
+def _reinstall(st):
+    prev = getattr(_STATE, "tp", None)
+    _STATE.tp = st
+    try:
+        yield
+    finally:
+        _STATE.tp = prev
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute in the
+    backward (which may run on autograd's device thread) sees the
+    tensor-parallel context that the forward saw."""
+    st = getattr(_STATE, "tp", None)
+    return contextlib.nullcontext(), _reinstall(st)
+
+
+def split_model_dim(mesh) -> Optional[int]:
+    """The index of ``mesh``'s ``"model"`` dim where it splits (size > 1),
+    else None."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    return i if mesh.mesh.shape[i] > 1 else None
+
+
+def model_size() -> int:
+    st = tp_state()
+    return 1 if st is None else st.size
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the ``"model"`` axis (0 without TP)."""
+    st = tp_state()
+    if st is None:
+        return 0
+    return int(st.mesh.get_coordinate()[st.model_dim])
+
+
+def model_group():
+    """The process group of this rank's ``"model"`` axis (None without
+    TP)."""
+    st = tp_state()
+    return None if st is None else st.mesh.get_group(st.model_dim)
+
+
+def local_slice(logical: Optional[str], size: int) -> slice:
+    """The rank's slice of a dim of ``size`` named ``logical``: its
+    contiguous shard where the rules resolve the dim to ``"model"``
+    (``pspec_for``'s choice for a tensor whose earlier dims do not take
+    ``"model"``), else the whole dim."""
+    st = tp_state()
+    if st is None or _first_fit(st.mesh, st.rules, logical, size,
+                                None) != "model":
+        return slice(0, size)
+    n = size // st.size
+    r = model_rank()
+    return slice(r * n, (r + 1) * n)
+
+
+def is_local(logical: Optional[str], size: int) -> bool:
+    """Whether a dim of ``size`` named ``logical`` is split over
+    ``"model"`` (``local_slice`` is a part)."""
+    sl = local_slice(logical, size)
+    return sl.stop - sl.start < size
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Whether the residual stream of ``seq_len`` rows is sequence-sharded
+    over ``"model"`` (the ``seq_parallel`` rules, rows that divide)."""
+    return is_local("seq", seq_len)
+
+
+@contextlib.contextmanager
+def sequence(seq_len: int):
+    """The step's whole sequence length for ``shard``'s scatter (and
+    ``sp_active``), inside the block: a new context, so that a recompute
+    that captured the old one (``recompute_context``) keeps it."""
+    prev = getattr(_STATE, "tp", None)
+    if prev is None:
+        yield
+        return
+    st = TPState(prev.mesh, prev.rules)
+    st.seq_len = seq_len
+    _STATE.tp = st
+    try:
+        yield
+    finally:
+        _STATE.tp = prev
+
+
+def sp_active() -> bool:
+    """Whether the residual stream is sequence-sharded now: the
+    ``seq_parallel`` rules and a step's length that divides."""
+    st = tp_state()
+    return st is not None and st.seq_len is not None \
+        and seq_parallel(st.seq_len)

@@ -16,7 +16,7 @@ Axes glossary
   vocab     vocabulary dim of embed table / lm head   -> TP over model
   heads / kv_heads / head_dim / ff                    -> TP over model
   experts   MoE expert dim                            -> EP over model
-  seq       activation sequence dim                   -> replicated
+  seq       sequence dim (sequence parallelism)       -> SP over model (opt-in)
 
 A mesh here is a ``torch.distributed`` ``DeviceMesh``: its
 ``mesh_dim_names`` are the axis names and ``mesh.shape`` their sizes (any
@@ -45,7 +45,7 @@ DEFAULT_RULES: Rules = {
     # FSDP (ZeRO-3): weight d_model dims sharded over the data axis; DTensor
     # all-gathers weights per use and reduce-scatters grads.
     "embed": [("data",), ()],
-    # activation sequence dim: replicated (no sequence parallelism)
+    # sequence parallelism is opt-in (make_rules(seq_parallel=True))
     "seq": [()],
     # decode KV caches shard their sequence dim over 'model' (partial-softmax
     # decode) — independent of activation sequence parallelism
@@ -65,22 +65,29 @@ DEFAULT_RULES: Rules = {
 }
 
 
-def make_rules(*, fsdp: bool = True,
+def make_rules(*, fsdp: bool = True, seq_parallel: bool = False,
+               expert_data_shard: bool = False,
                overrides: dict | None = None) -> Rules:
-    """Build a rule table.
+    """Build a rule table (the reference's options).
 
     fsdp: shard weight d_model dims over ('pod','data') / ('data',).
-
-    The reference's ``seq_parallel`` and ``expert_data_shard`` options are
-    not ported: the port runs the model on gathered plain tensors (no
-    activation is a DTensor) and no spec names ``expert_embed``, so
-    neither would change a placement.
+    seq_parallel: shard activation seq dims over 'model' (the residual
+      stream between blocks: ``context.shard``).
+    expert_data_shard: additionally shard expert weight d_model over data
+      (no spec names ``expert_embed`` in either package, so this changes
+      no placement; the table equals the reference's).
     """
     rules = {k: list(v) for k, v in DEFAULT_RULES.items()}
     if fsdp:
         rules["embed"] = [("pod", "data"), ("data",), ()]
     else:
         rules["embed"] = [()]
+    if seq_parallel:
+        rules["seq"] = [("model",), ()]
+    if expert_data_shard:
+        rules["expert_embed"] = [("pod", "data"), ("data",), ()]
+    else:
+        rules["expert_embed"] = [()]
     if overrides:
         for k, v in overrides.items():
             rules[k] = [tuple(c) for c in v]

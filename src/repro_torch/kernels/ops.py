@@ -19,8 +19,10 @@ gradient is wanted (grad mode on and an input that requires one) they run
 through ``torch.autograd.Function``s whose backward is the backward kernel
 on the card (``decay_scan_bwd``, ``flash_attention_bwd``) and the plain
 backward (``ref.decay_scan_bwd_ref``, ``ref.attention_bwd_ref``) on the
-CPU; the attention forward then also writes the rows' log-sum-exp, in the
-same launch.  Without one (serving runs under ``inference_mode``) they are
+CPU (for attention only where the op runs on the CPU: a DTensor or the
+dry-run's fake tensors; a plain CPU tensor takes ``ref.chunked_attention``
+under autograd, the JAX models' order); the attention forward then also
+writes the rows' log-sum-exp, in the same launch.  Without one (serving runs under ``inference_mode``) they are
 the plain calls: no log-sum-exp, no saved tensors, no extra launch.
 
 Two contracts every caller of ``thinning_rmw`` inherits from the reference:
@@ -120,10 +122,11 @@ def thinning_rmw_keyed(taus, state, key, q, t, valid, rng, ent=None, *,
 # shardable over batch and heads (each rank's keys are its own), the scan
 # over channels.  Each op's body dispatches on the tensors' device, as
 # before: the CUDA kernel on the card, the plain version on the CPU.  No
-# step of the port hands these ops DTensors yet: the train and serve steps
-# run the model on gathered plain tensors, so the sharding rules act only
-# where a caller shards the ops' inputs itself (``chip_smoke.py`` phase 13
-# and the tests hold them against the plain calls).
+# step of the port hands these ops DTensors: the train and serve steps run
+# the model on each rank's plain local tensors (its heads and channels
+# under tensor parallelism), so the sharding rules act only where a caller
+# shards the ops' inputs itself (``chip_smoke.py`` phase 13 and the tests
+# hold them against the plain calls).
 from torch import Tensor                                    # noqa: E402
 
 
@@ -340,10 +343,30 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def _plain_cpu(x) -> bool:
+    """A CPU tensor that holds values: not a DTensor (its op carries the
+    sharding rules) and not a fake one (the dry-run counts the op)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    return x.device.type == "cpu" and type(x) is not DTensor \
+        and not isinstance(x, FakeTensor)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, q_chunk: int = 1024,
+                    kv_chunk: int = 1024):
     """q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] -> [B,H,Sq,D] (float32 or
-    bfloat16).  Differentiable in q, k and v."""
+    bfloat16).  Differentiable in q, k and v.
+
+    On CPU tensors this is ``ref.chunked_attention`` (blocks of
+    ``q_chunk`` queries and ``kv_chunk`` keys, the JAX models' order),
+    differentiated by autograd as ``jax.grad`` differentiates the
+    reference; the chunk sizes mean nothing to the kernel."""
+    if _plain_cpu(q):
+        _fa.check_args(q, k, v, window=window, softcap=softcap)
+        return ref.chunked_attention(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk)
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
     return _flash_attention_op(q, k, v, causal, window, softcap, False)[0]

@@ -3,7 +3,10 @@ backward kernels.
 
 ``decay_scan_ref`` and ``attention_ref`` transcribe ``repro.kernels.ref``'s
 oracles of the same names (held to the JAX package's own tolerances on the
-CPU); the CUDA kernels ``csrc/decay_scan.cu`` (bitwise) and
+CPU); ``chunked_attention`` is the same attention in the order of the JAX
+models' ``chunked_attention``, which ``ops.flash_attention`` runs on CPU
+tensors so that autograd differentiates what ``jax.grad`` does; the CUDA
+kernels ``csrc/decay_scan.cu`` (bitwise) and
 ``csrc/flash_attention.cu`` (to a tolerance) are held against them on the
 card.  ``decay_scan_bwd_ref`` and ``attention_bwd_ref`` are their
 gradients, written out as the backward kernels compute them (a reverse
@@ -353,6 +356,82 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
+
+
+def _attend_block(qg, k, v, q_pos, k_pos, scale, causal, window, softcap):
+    """One (query block, key block) of ``chunked_attention``: (o, m, l),
+    the unnormalised float32 output [B, Sq, Kh, G, D] and the rows' max
+    and sum [B, Sq, Kh, G], as the reference's ``_attend_block``."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=qg.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    s = torch.where(mask, s, -1e30)
+    m = torch.amax(s, dim=-1)                                  # [B,Kh,G,Sq]
+    e = torch.exp(s - m[..., None])
+    l = torch.sum(e, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", e.to(v.dtype).float(), v.float())
+    return o, m.permute(0, 3, 1, 2), l.permute(0, 3, 1, 2)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, q_chunk: int = 1024,
+                      kv_chunk: int = 1024, expand_kv: bool = True):
+    """Attention in the JAX package's order (``repro.models.attention.
+    chunked_attention``), so that autograd differentiates the operations
+    ``jax.grad`` does.  q: [B,H,Sq,D]; k, v: [B,Kh,Skv,D] (the kernel's
+    layout) -> [B,H,Sq,D].
+
+    K/V are expanded over the group first (``expand_kv``); each block
+    takes ``e = exp(s - m)``, ``o = e v`` in float32 (the weights rounded
+    to ``v.dtype``) and divides by ``max(l, 1e-30)`` after the product:
+    in one block when ``Sq % q_chunk`` or ``Skv % kv_chunk`` is nonzero,
+    else over key blocks merged by the online softmax.  The same function
+    as ``attention_ref`` (to float32 rounding)."""
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))       # [B,S,H,D]
+    B, Sq, H, D = qs.shape
+    Kh = ks.shape[2]
+    G = H // Kh
+    scale = D ** -0.5
+    if G > 1 and expand_kv:
+        ks = ks.repeat_interleave(G, dim=2)
+        vs = vs.repeat_interleave(G, dim=2)
+        Kh, G = H, 1
+    qg = qs.reshape(B, Sq, Kh, G, D)
+    Skv = ks.shape[1]
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+    if Sq % q_chunk or Skv % kv_chunk:
+        o, m, l = _attend_block(qg, ks, vs, q_pos, k_pos, scale, causal,
+                                window, softcap)
+        out = o / torch.clamp_min(l, 1e-30)[..., None]
+        return out.reshape(B, Sq, H, D).to(q.dtype).transpose(1, 2)
+    outs = []
+    for i in range(0, Sq, q_chunk):
+        qi, qpi = qg[:, i:i + q_chunk], q_pos[i:i + q_chunk]
+        acc = qg.new_zeros((B, q_chunk, Kh, G, D), dtype=torch.float32)
+        m_run = torch.full((B, q_chunk, Kh, G), -1e30, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros_like(m_run)
+        for j in range(0, Skv, kv_chunk):
+            o, m_new, l_new = _attend_block(
+                qi, ks[:, j:j + kv_chunk], vs[:, j:j + kv_chunk], qpi,
+                k_pos[j:j + kv_chunk], scale, causal, window, softcap)
+            m_next = torch.maximum(m_run, m_new)
+            c_old = torch.exp(m_run - m_next)
+            c_new = torch.exp(m_new - m_next)
+            acc = acc * c_old[..., None] + o * c_new[..., None]
+            l_run = l_run * c_old + l_new * c_new
+            m_run = m_next
+        outs.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, D)
+    return out.to(q.dtype).transpose(1, 2)
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,

@@ -9,11 +9,14 @@ rule table of ``distributed.sharding``) under ``FakeTensorMode``, as rank
 allocated and no collective moves a byte, but every operation, every
 DTensor redistribution and every kernel (one ``torch.library`` op each,
 with its fake and its FLOP formula) executes.  The steps gather each
-layer's parameters and run the model on plain tensors (``train.trainer``,
-``serving.engine``), so the ``model`` axis shards the state and
-replicates the compute; the reference's ``--seq-parallel`` is not ported
-(no activation is sharded) and ``seq_parallel`` is false in every
-record.  ``launch.hlo_analysis``
+layer's parameters over the data axes and run the model tensor-parallel
+over ``model`` (``train.trainer``, ``serving.engine``): rank 0 computes
+each product the rules split on its shard, with the tensor-parallel
+collectives (``distributed.collectives``) where GSPMD would put them, and
+a decode attends its ``kv_seq`` slots and merges partial softmaxes.
+``--seq-parallel`` (``make_rules(seq_parallel=True)``) shards the
+residual stream's rows over ``model`` between blocks; the record's
+``seq_parallel`` says which.  ``launch.hlo_analysis``
 counts what rank 0 does.  Every layer and every micro-batch executes, so
 no 1-group/2-group extrapolation is needed (the reference lowers two
 unrolled variants because XLA's cost analysis counts a loop body once).
@@ -136,10 +139,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
              extra_rules: dict | None = None,
              grad_accum: int | None = None,
              model_overrides: dict | None = None, run=None,
-             shape: shape_lib.ShapeSpec | None = None) -> dict:
+             shape: shape_lib.ShapeSpec | None = None,
+             seq_parallel: bool = False) -> dict:
     """One cell's record, with the reference's keys.  ``run`` and
     ``shape`` replace ``load_config(arch)`` and ``SHAPES[shape_name]``
-    (a smoke cell); ``mesh_name`` is ``single``, ``multi`` or ``AxB[xC]``.
+    (a smoke cell); ``mesh_name`` is ``single``, ``multi`` or ``AxB[xC]``;
+    ``seq_parallel`` picks the reference's sequence-parallel rules.
     ``lower_s`` is the time the stand-ins took, ``compile_s`` the step's
     run."""
     t0 = time.time()
@@ -163,11 +168,10 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
     # FSDP only for training: serving has no optimizer state to amortize
     # (serve cells shard weights over 'model' only)
     rules = sharding_rules.make_rules(fsdp=(shape.kind == "train"),
+                                      seq_parallel=seq_parallel,
                                       overrides=extra_rules)
-    # ``seq_parallel`` is the reference's key: the port has no sequence
-    # parallelism, so it is always false
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "devices": n_dev, "status": "ok", "seq_parallel": False}
+           "devices": n_dev, "status": "ok", "seq_parallel": seq_parallel}
     with dctx.mesh_context(mesh, rules):
         m = measure(run, shape, mesh)
     a = m["analysis"]
@@ -233,6 +237,8 @@ def main():
     ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--model-json", default=None,
                     help="JSON dict of ModelConfig overrides")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="shard activation seq dims over 'model'")
     args = ap.parse_args()
     torch.set_num_threads(1)
 
@@ -266,7 +272,8 @@ def main():
                                    grad_accum=args.grad_accum,
                                    model_overrides=json.loads(
                                        args.model_json)
-                                   if args.model_json else None)
+                                   if args.model_json else None,
+                                   seq_parallel=args.seq_parallel)
                 except Exception as e:
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error", "error": repr(e),

@@ -177,7 +177,8 @@ def decode_state_sds(run: RunConfig, mesh, shape: shape_lib.ShapeSpec,
                     dctx.pspec_for(x.shape, backbone.parse_axes(a)))
     layers = tuple(tree_map(place, c, a)
                    for c, a in zip(state.layers, axes.layers))
-    return backbone.DecodeState(pos=shape.seq_len - 1, layers=layers)
+    return backbone.DecodeState(pos=shape.seq_len - 1, layers=layers,
+                                max_len=shape.seq_len)
 
 
 # ---------------------------------------------------------- real tensors

@@ -27,6 +27,18 @@ sync's blocks.  The forward reads layer g of a stack as a view (one
 pattern layers is recomputed in the backward
 (``torch.utils.checkpoint``, as the reference checkpoints ``group_body``),
 and ``chunked_xent`` / ``train_loss`` are the reference's loss.
+
+Under a tensor-parallel context (``distributed.context.tp_context``, which
+the train and serve steps install under a mesh) every layer runs on the
+rank's shards (``attention``, ``ffn.mlp``, ``rglru``, ``mamba2``), the
+embedding lookup and the head are vocab-parallel (a masked local lookup
+summed over ``"model"``; a log-sum-exp over the ranks' vocab shards, the
+label's logit from its owner) and a decode state holds the rank's cache
+slots, heads and channels.  ``gather`` maps a parameter subtree to what
+the rank computes with (``gather(tree, whole=)``: its ``"model"`` shards
+kept, or gathered whole for a block that runs whole, as the MoE does).
+Under ``seq_parallel`` the residual stream holds the rank's rows between
+blocks (``shard`` after the embedding scatters them).
 """
 from __future__ import annotations
 
@@ -34,9 +46,12 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import context as dctx
 from repro_torch.models import attention, common, ffn, mamba2, moe_ep, rglru
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import Params, Spec, shard
@@ -186,14 +201,30 @@ def active_params(cfg) -> int:
 
 # ------------------------------------------------------------------ forward
 def _embed(params, cfg, inputs, compute_dtype):
-    """Token ids [B, S] or, for frame input, frames [B, S, frame_dim]."""
+    """Token ids [B, S] or, for frame input, frames [B, S, frame_dim].
+    Where the rules split the vocab over ``"model"``, each rank looks up
+    the ids its rows of the table hold (zeros elsewhere) and the ranks'
+    rows are summed: one rank's value and zeros, so the same bits.  Under
+    ``seq_parallel`` the residual stream leaves with the rank's rows
+    (``shard`` scatters a whole one)."""
     if cfg.input_mode == "frames":
         e = params["embed"]
         x = torch.matmul(inputs.to(compute_dtype),
                          e["frame_proj"].to(compute_dtype)) \
             + e["frame_bias"].to(compute_dtype)
     else:
-        x = params["embed"]["tok"][inputs].to(compute_dtype)
+        tok = params["embed"]["tok"]
+        Vp = padded_vocab(cfg)
+        if dctx.is_local("vocab", Vp):
+            sl = dctx.local_slice("vocab", Vp)
+            own = (inputs >= sl.start) & (inputs < sl.stop)
+            rows = tok[torch.where(own, inputs - sl.start, 0)]
+            x = torch.where(own[..., None], rows, 0).to(compute_dtype)
+            # summed over the ranks (under seq_parallel reduce-scattered
+            # to the rank's rows, which the shard below leaves as they are)
+            x = common.region_out(x, True)
+        else:
+            x = tok[inputs].to(compute_dtype)
     if cfg.scale_embeddings:
         # sqrt(d_model) rounded to the compute dtype, as a Python scalar:
         # no host-to-device copy (and its stream sync) per call
@@ -206,7 +237,36 @@ def _attn_kwargs(cfg) -> dict:
     return dict(rope_theta=cfg.rope_theta, window=cfg.attn_window,
                 softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
                 norm_eps=cfg.norm_eps,
-                use_rope=cfg.causal)    # the encoder (hubert) skips rope
+                use_rope=cfg.causal,    # the encoder (hubert) skips rope
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+
+
+def _heads(cfg) -> dict:
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+
+
+def sub_block_local(kind: str, cfg) -> dict:
+    """Which of a layer's sub-blocks run on the rank's shards under the
+    installed tensor-parallel context (the rest run whole: their
+    parameters are gathered over ``"model"``).  The norms and gates hold
+    no ``"model"`` shard."""
+    heads = dctx.is_local("heads", cfg.num_heads)
+    out = {"attn": heads, "xattn": heads, "moe": False,
+           "mlp": dctx.is_local("ff", cfg.d_ff) if cfg.d_ff else False}
+    if kind == "rec":
+        out["rglru"] = rglru.is_local(cfg)
+    if kind == "ssd":
+        out["ssd"] = mamba2.is_local(cfg)
+    return out
+
+
+def _layer_params(gather, kind: str, p, cfg):
+    """A layer's parameters mapped by ``gather``, each sub-block's kept to
+    the rank's shards where it runs local and gathered whole where not."""
+    if gather is _same:
+        return p
+    local = sub_block_local(kind, cfg)
+    return {k: gather(v, whole=not local.get(k, True)) for k, v in p.items()}
 
 
 def _vision(cfg, image_embeds, compute_dtype):
@@ -225,23 +285,27 @@ def apply_block(kind: str, p, x, cfg, positions, vision=None, *,
     Returns (x, metrics, cache entry or None): ``metrics`` holds the MoE
     losses and drop fraction (0.0 for the other kinds)."""
     metrics = dict(ZERO_METRICS)
+    rp = common.row_param
     if kind == "cross":
-        kv = attention.cross_kv(p["xattn"], vision, qk_norm=cfg.qk_norm,
-                                norm_eps=cfg.norm_eps)
-        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        kv = attention.memory_kv(p["xattn"], vision, qk_norm=cfg.qk_norm,
+                                 norm_eps=cfg.norm_eps, **_heads(cfg))
+        h = common.rms_norm(x, rp(p["ln1"]), cfg.norm_eps)
         out = attention.cross_attention(p["xattn"], h, kv,
                                         qk_norm=cfg.qk_norm,
-                                        norm_eps=cfg.norm_eps)
-        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
-        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn.mlp(p["mlp"], h)
-        return x, metrics, kv if collect_cache else None
+                                        norm_eps=cfg.norm_eps, **_heads(cfg))
+        x = x + torch.tanh(rp(p["gate_attn"])).to(x.dtype) * out
+        h = common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps)
+        x = x + torch.tanh(rp(p["gate_mlp"])).to(x.dtype) * ffn.mlp(
+            p["mlp"], h, d_ff=cfg.d_ff)
+        cache = attention.whole_memory(kv, **_heads(cfg)) \
+            if collect_cache else None
+        return x, metrics, cache
     cache = None
     if kind == "ssd":
-        h = common.rms_norm(x, p["ln"], cfg.norm_eps)
+        h = common.rms_norm(x, rp(p["ln"]), cfg.norm_eps)
         out = mamba2.ssd_block(p["ssd"], h, cfg, return_state=collect_cache)
     else:
-        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = common.rms_norm(x, rp(p["ln1"]), cfg.norm_eps)
         if kind == "rec":
             out = rglru.rglru_block(p["rglru"], h, cfg,
                                     return_state=collect_cache)
@@ -255,15 +319,16 @@ def apply_block(kind: str, p, x, cfg, positions, vision=None, *,
         out, cache = out
     x = x + out
     if kind == "moe":
-        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = common.region_in(common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps),
+                             False)
         moe_fn = moe_ep.moe_ep if cfg.moe_impl == "ep_a2a" else ffn.moe
         y, m = moe_fn(p["moe"], h, num_experts=cfg.num_experts,
                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
         metrics.update(m)
-        x = x + y
+        x = x + common.region_out(y, False)
     elif "mlp" in p:              # rec, and attn when d_ff > 0
-        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + ffn.mlp(p["mlp"], h)
+        h = common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps)
+        x = x + ffn.mlp(p["mlp"], h, d_ff=cfg.d_ff)
     return x, metrics, cache
 
 
@@ -305,7 +370,7 @@ def serving_params(params, cfg) -> dict:
     return out
 
 
-def _same(tree):
+def _same(tree, whole: bool = False):
     return tree
 
 
@@ -328,33 +393,38 @@ def forward_hidden(params, cfg, inputs, *, compute_dtype=torch.bfloat16,
     the trainer's gather of sharded parameters, a layer at a time."""
     plan = layer_plan(cfg)
     gather = gather or _same
-    x = _embed({"embed": gather(params["embed"])}, cfg, inputs,
-               compute_dtype)
-    vision = _vision(cfg, image_embeds, compute_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    prefix, groups, suffix = layer_sections(params, cfg)
-    metrics = layer_metrics if layer_metrics is not None else []
+    S = inputs.shape[1]
+    positions = torch.arange(S, device=inputs.device)
+    with dctx.sequence(S):
+        x = _embed({"embed": gather(params["embed"])}, cfg, inputs,
+                   compute_dtype)
+        vision = _vision(cfg, image_embeds, compute_dtype)
+        prefix, groups, suffix = layer_sections(params, cfg)
+        metrics = layer_metrics if layer_metrics is not None else []
 
-    def run(kinds, layers, x):
-        out = []
-        for kind, p in zip(kinds, layers):
-            x, m, _ = apply_block(kind, gather(p), x, cfg, positions,
-                                  vision)
-            out.append(m)
-        return x, out
+        def run(kinds, layers, x):
+            out = []
+            for kind, p in zip(kinds, layers):
+                x, m, _ = apply_block(kind, _layer_params(gather, kind, p,
+                                                          cfg),
+                                      x, cfg, positions, vision)
+                out.append(m)
+            return x, out
 
-    x, m = run(plan.prefix, prefix, x)
-    metrics += m
-    for layers in groups:
-        if remat:
-            x, m = checkpoint(run, plan.pattern, layers, x,
-                              use_reentrant=False)
-        else:
-            x, m = run(plan.pattern, layers, x)
+        x, m = run(plan.prefix, prefix, x)
         metrics += m
-    x, m = run(plan.suffix, suffix, x)
-    metrics += m
-    return common.rms_norm(x, gather(params["final_norm"]), cfg.norm_eps)
+        for layers in groups:
+            if remat:
+                x, m = checkpoint(run, plan.pattern, layers, x,
+                                  use_reentrant=False,
+                                  context_fn=dctx.recompute_context)
+            else:
+                x, m = run(plan.pattern, layers, x)
+            metrics += m
+        x, m = run(plan.suffix, suffix, x)
+        metrics += m
+        return common.rms_norm(x, common.row_param(
+            gather(params["final_norm"])), cfg.norm_eps)
 
 
 def _head_params(params, gather) -> dict:
@@ -373,10 +443,21 @@ def _head_weight(params, x_dtype):
 
 def logits_from_hidden(params, cfg, x) -> torch.Tensor:
     """Full-vocab logits, from the untied head or the tied embedding.
-    [B, S, D] -> [B, S, Vp] float32."""
+    [B, S, D] -> [B, S, Vp] float32.  Where the rules split the vocab over
+    ``"model"`` each rank computes its columns, gathered whole after."""
+    Vp = padded_vocab(cfg)
+    local = dctx.is_local("vocab", Vp)
+    if local:
+        x = collectives.copy_to_model(x, dctx.model_group())
     logits = torch.matmul(x, _head_weight(params, x.dtype))
     logits = shard(logits, "batch", "seq", "vocab").float()
-    Vp = logits.shape[-1]
+    if local:
+        sl = dctx.local_slice("vocab", Vp)
+        if sl.stop > cfg.vocab_size:  # mask vocab padding, by global id
+            pad = torch.arange(sl.start, sl.stop,
+                               device=x.device) >= cfg.vocab_size
+            logits = torch.where(pad, -1e30, logits)
+        return collectives.gather_model(logits, dctx.model_group(), -1)
     if Vp > cfg.vocab_size:  # mask vocab padding
         logits[..., cfg.vocab_size:] = -1e30
     return logits
@@ -387,6 +468,8 @@ class DecodeState(NamedTuple):
     pos: int             # number of tokens already in context
     layers: tuple        # one cache entry per layer (KVCache / SSMState /
     #                      RGLRUState / the cross layers' static (k, v))
+    max_len: Optional[int] = None   # the whole caches' context (a rank's
+    #                      KVCache may hold a slice of its slots)
 
 
 def _attn_cache_len(cfg, max_len: int) -> int:
@@ -419,8 +502,11 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype,
         for k in layer_plan(cfg).kinds))
 
 
-def decode_block(kind: str, p, cache, x, cfg, pos: int):
-    """One layer of single-token decode.  Returns (x, new_cache)."""
+def decode_block(kind: str, p, cache, x, cfg, pos: int,
+                 cache_len: Optional[int] = None):
+    """One layer of single-token decode.  Returns (x, new_cache).
+    ``cache_len``: the whole attention cache's length (None: the given
+    cache's own)."""
     if kind == "ssd":
         h = common.rms_norm(x, p["ln"], cfg.norm_eps)
         out, cache = mamba2.ssd_decode_step(p["ssd"], h, cache, cfg)
@@ -428,16 +514,19 @@ def decode_block(kind: str, p, cache, x, cfg, pos: int):
     h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "cross":     # the memory's K/V stay as the prefill made them
         out = attention.decode_cross_attention(
-            p["xattn"], h, cache, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+            p["xattn"], h, cache, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            **_heads(cfg))
         x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn.mlp(p["mlp"], h)
+        x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn.mlp(
+            p["mlp"], h, d_ff=cfg.d_ff)
         return x, cache
     if kind == "rec":
         out, cache = rglru.rglru_decode_step(p["rglru"], h, cache, cfg)
     elif kind in ("attn", "moe"):
         out, cache = attention.decode_self_attention(
-            p["attn"], h, cache, pos, **_attn_kwargs(cfg))
+            p["attn"], h, cache, pos, cache_len=cache_len,
+            **_attn_kwargs(cfg))
     else:
         raise ValueError(kind)
     x = x + out
@@ -448,7 +537,7 @@ def decode_block(kind: str, p, cache, x, cfg, pos: int):
         x = x + y
     elif "mlp" in p:
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + ffn.mlp(p["mlp"], h)
+        x = x + ffn.mlp(p["mlp"], h, d_ff=cfg.d_ff)
     return x, cache
 
 
@@ -457,19 +546,26 @@ def decode_step(params, cfg, state: DecodeState, token: torch.Tensor, *,
     """One decode step.  token: [B, 1] -> ([B, Vp] f32 logits, state).
 
     The attention caches are updated in place.  ``gather`` as
-    ``forward_hidden``'s.
+    ``forward_hidden``'s.  Under a tensor-parallel context a cache split
+    by ``kv_seq`` (``state.max_len`` gives its whole length) is attended
+    where it lies: the step moves the new token's K/V, the heads' queries
+    and outputs and their statistics, never a slot.
     """
     gather = gather or _same
+    cache_len = None if state.max_len is None else \
+        _attn_cache_len(cfg, state.max_len)
     x = _embed({"embed": gather(params["embed"])}, cfg, token,
                compute_dtype)
     caches = []
     for kind, p, c in zip(layer_plan(cfg).kinds, params["layers"],
                           state.layers):
-        x, c = decode_block(kind, gather(p), c, x, cfg, state.pos)
+        x, c = decode_block(kind, _layer_params(gather, kind, p, cfg), c, x,
+                            cfg, state.pos, cache_len)
         caches.append(c)
     x = common.rms_norm(x, gather(params["final_norm"]), cfg.norm_eps)
     logits = logits_from_hidden(_head_params(params, gather), cfg, x)[:, 0]
-    return logits, DecodeState(pos=state.pos + 1, layers=tuple(caches))
+    return logits, DecodeState(pos=state.pos + 1, layers=tuple(caches),
+                               max_len=state.max_len)
 
 
 # --------------------------------------------------- logical axes for caches
@@ -514,15 +610,22 @@ def decode_state_axes(cfg) -> DecodeState:
 # ------------------------------------------------------------------ prefill
 def _fill_kv_cache(cfg, kv, max_len: int, dtype) -> KVCache:
     """Place prefill K/V [B, S, Kh, D] into a (possibly ring) cache: the
-    last min(S, L) tokens, token t in slot t % L."""
+    last min(S, L) tokens, token t in slot t % L.  Where the rules split
+    ``kv_seq`` over ``"model"`` the rank keeps its slots only."""
     k, v = kv
     B, S = k.shape[:2]
     L = _attn_cache_len(cfg, max_len)
-    cache = KVCache.zeros(B, L, cfg.num_kv_heads, cfg.head_dim, dtype,
-                          k.device)
+    seq = dctx.local_slice("kv_seq", L)
+    cache = KVCache.zeros(B, seq.stop - seq.start, cfg.num_kv_heads,
+                          cfg.head_dim, dtype, k.device)
     take = min(S, L)
-    ts = torch.arange(S - take, S, device=k.device)
+    # token and slot indices from the shapes alone (host integers: no
+    # value is read, so the dry-run's fake tensors pass too)
+    ts = np.arange(S - take, S)
     slots = ts % L if cfg.attn_window > 0 else ts
+    mine = (slots >= seq.start) & (slots < seq.stop)
+    ts = torch.as_tensor(ts[mine], device=k.device)
+    slots = torch.as_tensor(slots[mine] - seq.start, device=k.device)
     cache.k[:, slots] = k[:, ts].to(dtype)
     cache.v[:, slots] = v[:, ts].to(dtype)
     return cache
@@ -537,25 +640,28 @@ def prefill(params, cfg, tokens, *, max_len: Optional[int] = None,
     in ``forward_hidden``; a cross layer's cache is its memory K/V in the
     compute dtype, as the reference keeps it."""
     gather = gather or _same
-    x = _embed({"embed": gather(params["embed"])}, cfg, tokens,
-               compute_dtype)
-    vision = _vision(cfg, image_embeds, compute_dtype)
-    S = x.shape[1]
+    S = tokens.shape[1]
     max_len = max_len or S
-    positions = torch.arange(S, device=x.device)
+    positions = torch.arange(S, device=tokens.device)
     caches = []
-    for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
-        x, m, c = apply_block(kind, gather(p), x, cfg, positions, vision,
-                              collect_cache=True)
-        if layer_metrics is not None:
-            layer_metrics.append(m)
-        if kind in ("attn", "moe"):
-            c = _fill_kv_cache(cfg, c, max_len, cache_dtype)
-        caches.append(c)
+    with dctx.sequence(S):
+        x = _embed({"embed": gather(params["embed"])}, cfg, tokens,
+                   compute_dtype)
+        vision = _vision(cfg, image_embeds, compute_dtype)
+        for kind, p in zip(layer_plan(cfg).kinds, params["layers"]):
+            x, m, c = apply_block(kind, _layer_params(gather, kind, p, cfg),
+                                  x, cfg, positions, vision,
+                                  collect_cache=True)
+            if layer_metrics is not None:
+                layer_metrics.append(m)
+            if kind in ("attn", "moe"):
+                c = _fill_kv_cache(cfg, c, max_len, cache_dtype)
+            caches.append(c)
+        x = common.whole_rows(x)
     x = common.rms_norm(x[:, -1:], gather(params["final_norm"]),
                         cfg.norm_eps)
     logits = logits_from_hidden(_head_params(params, gather), cfg, x)[:, 0]
-    return logits, DecodeState(pos=S, layers=tuple(caches))
+    return logits, DecodeState(pos=S, layers=tuple(caches), max_len=max_len)
 
 
 def encode(params, cfg, frames, *, compute_dtype=torch.bfloat16,
@@ -563,8 +669,9 @@ def encode(params, cfg, frames, *, compute_dtype=torch.bfloat16,
     """Encoder-only serve step (hubert): frames [B, S, frame_dim] ->
     full-sequence logits [B, S, Vp] float32."""
     gather = gather or _same
-    x = forward_hidden(params, cfg, frames, compute_dtype=compute_dtype,
-                       gather=gather)
+    with dctx.sequence(frames.shape[1]):
+        x = common.whole_rows(forward_hidden(
+            params, cfg, frames, compute_dtype=compute_dtype, gather=gather))
     return logits_from_hidden(_head_params(params, gather), cfg, x)
 
 
@@ -576,31 +683,64 @@ def chunked_xent(params, cfg, x, labels, valid, *, seq_chunk: int = 512):
     is cut into chunks (the largest of ``seq_chunk``, halved, that divides
     S); each chunk's head product and float32 log-sum-exp are checkpointed
     (recomputed in the backward), so the peak is [B, chunk, Vp] float32.
-    Returns (mean cross-entropy over the valid tokens, {accuracy, tokens}).
+    Where the rules split the vocab over ``"model"`` the rank computes its
+    columns: the log-sum-exp takes the ranks' max and sum, the label's
+    logit comes from the rank that holds it, the padding is masked by
+    global id.  Returns (mean cross-entropy over the valid tokens,
+    {accuracy, tokens}).
     """
+    Vp = padded_vocab(cfg)
+    local = dctx.is_local("vocab", Vp)
+    x = common.region_in(x, local)
+    if local:
+        # the rows whole (each chunk's product sums its input gradient
+        # over the ranks, so the gather's gradient is this rank's rows)
+        x = common.whole_rows(x)
+    dt = x.dtype
     S = x.shape[1]
     V = cfg.vocab_size
     chunk = min(seq_chunk, S)
     while S % chunk:
         chunk //= 2
+    sl = dctx.local_slice("vocab", Vp)
+    group = dctx.model_group() if local else None
+    ids = torch.arange(sl.start, sl.stop, device=x.device)
 
     def one_chunk(xc, lc, vc):
-        logits = torch.matmul(xc, _head_weight(params, xc.dtype))
+        logits = common.col_matmul(xc, _head_weight(params, dt), local,
+                                   sp=False)
         logits = shard(logits, "batch", None, "vocab").float()
-        if logits.shape[-1] > V:
-            pad = torch.arange(logits.shape[-1], device=x.device) >= V
-            logits = torch.where(pad, -1e30, logits)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        if sl.stop > V:
+            logits = torch.where(ids >= V, -1e30, logits)
+        if group is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+            correct = vc & (torch.argmax(logits, -1) == lc)
+        else:
+            gmax = collectives.all_reduce_model(
+                torch.amax(logits, dim=-1).detach(), group, "max")
+            se = torch.sum(torch.exp(logits - gmax[..., None]), dim=-1)
+            lse = gmax + torch.log(collectives.reduce_from_model(se, group))
+            own = (lc >= sl.start) & (lc < sl.stop)
+            ll = torch.gather(logits, -1, torch.where(
+                own, lc - sl.start, 0)[..., None])[..., 0]
+            ll = collectives.reduce_from_model(torch.where(own, ll, 0.0),
+                                               group)
+            # the first id holding the largest logit, over every rank
+            hit = logits.detach() == gmax[..., None]
+            first = torch.where(hit.any(-1), torch.argmax(hit.int(), -1)
+                                + sl.start, Vp).float()
+            first = collectives.all_reduce_model(first, group, "min")
+            correct = vc & (first == lc)
         ce = torch.where(vc, lse - ll, 0.0)
-        correct = vc & (torch.argmax(logits, -1) == lc)
         return ce.sum(), vc.sum(), correct.sum()
 
     ce_sum = n_valid = n_correct = 0
     for i in range(0, S, chunk):
         ce, nv, nc = checkpoint(one_chunk, x[:, i:i + chunk],
                                 labels[:, i:i + chunk],
-                                valid[:, i:i + chunk], use_reentrant=False)
+                                valid[:, i:i + chunk], use_reentrant=False,
+                                context_fn=dctx.recompute_context)
         ce_sum, n_valid, n_correct = ce_sum + ce, n_valid + nv, \
             n_correct + nc
     total = torch.clamp_min(n_valid, 1)
@@ -621,8 +761,19 @@ def train_loss(params, cfg, batch: dict, *, compute_dtype=torch.bfloat16,
     float32)."""
     frames = cfg.input_mode == "frames"
     layer_metrics: list = []
-    x = forward_hidden(params, cfg, batch["frames" if frames else "tokens"],
-                       compute_dtype=compute_dtype,
+    inputs = batch["frames" if frames else "tokens"]
+    with dctx.sequence(inputs.shape[1]):
+        return _train_loss(params, cfg, batch, inputs, layer_metrics,
+                           compute_dtype=compute_dtype, remat=remat,
+                           moe_aux_weight=moe_aux_weight,
+                           moe_z_weight=moe_z_weight, seq_chunk=seq_chunk,
+                           gather=gather)
+
+
+def _train_loss(params, cfg, batch, inputs, layer_metrics, *, compute_dtype,
+                remat, moe_aux_weight, moe_z_weight, seq_chunk, gather):
+    frames = cfg.input_mode == "frames"
+    x = forward_hidden(params, cfg, inputs, compute_dtype=compute_dtype,
                        image_embeds=batch.get("image_embeds"),
                        layer_metrics=layer_metrics, remat=remat,
                        gather=gather)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives
 from repro_torch.distributed import context as dctx
 
 
@@ -281,3 +282,187 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def shard(x, *axes):
     return dctx.shard(x, *axes)
+
+
+# ------------------------------------------------ tensor-parallel regions
+# Under a tensor-parallel context (``distributed.context.tp_context``) a
+# block runs *local* (each rank on its shard of the heads or channels the
+# rules split over "model", with Megatron's collectives around it) or
+# *whole* (every rank the same compute on whole weights).  The residual
+# stream between blocks is replicated, or under ``seq_parallel`` split by
+# rows; ``region_in`` / ``region_out`` take it into and out of a block.
+# Every parameter's gradient then ends up complete on each rank that holds
+# it: a local shard's from its own compute, a replicated parameter's the
+# same on every rank (``region_param`` sums it where rank-local compute
+# or the rank's rows use it).
+#
+# The split products sum in another order than one process's whole ones,
+# so the two round differently: no bitwise result is expected.
+
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def region_in(x: torch.Tensor, local: bool) -> torch.Tensor:
+    """The block's input from the residual stream.  A local block's
+    products take it as it is (``col_matmul`` applies Megatron's f, or
+    under sequence parallelism the rows' gather, to each product); a
+    whole block's input has its rows gathered under sequence parallelism
+    (the gradient this rank's rows)."""
+    g = dctx.model_group()
+    if g is None or local or not dctx.sp_active():
+        return x
+    return collectives.gather_model(x, g, 1)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] of low-precision inputs, accumulated and
+    returned in float32 (not rounded): cuBLAS's bf16 product with a
+    float32 output on the card; the CPU, which has no such product, takes
+    the inputs to float32 (exact) first."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _ColProduct(torch.autograd.Function):
+    """A column-parallel product x @ w of a local block: Megatron's f
+    (identity; the input's gradient summed over the ranks) or, under
+    sequence parallelism, the rows gathered (the gradient
+    reduce-scattered).  Each product sums its own input gradient, its
+    ranks' partial sums in float32 before the one rounding that one
+    process's whole product makes; autograd then adds the block's
+    products' gradients in the input's dtype as it does in one process."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, sp):
+        if sp:
+            x = collectives.all_gather_model(x, group, 1)
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.sp = group, sp
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = (_mm_f32(g2, w.t()) if g.dtype in _LOW else g2 @ w.t()
+              ).reshape(x.shape)
+        dx = collectives.reduce_scatter_model(dx, ctx.group, 1) if ctx.sp \
+            else collectives.all_reduce_model(dx, ctx.group)
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(), g2)
+        return dx.to(x.dtype), dw, None, None
+
+
+def col_matmul(x: torch.Tensor, w: torch.Tensor, local: bool = False,
+               sp: Optional[bool] = None) -> torch.Tensor:
+    """``x @ w`` for a block's input ``x`` (``region_in``): where the
+    block is local under a tensor-parallel context, ``_ColProduct`` (``sp``:
+    whether ``x`` holds the rank's rows, default the context's)."""
+    g = dctx.model_group()
+    if not local or g is None:
+        return torch.matmul(x, w)
+    return _ColProduct.apply(x, w, g, dctx.sp_active() if sp is None
+                             else sp)
+
+
+class _RowMatmul(torch.autograd.Function):
+    """x [..., K] @ w [K, N] with a float32 result from low-precision
+    inputs (the products accumulated in float32 and not rounded): the
+    ranks' partial sums of a row-parallel product are summed before the
+    one rounding that one process's whole product makes.  The backward
+    is the plain product's, in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(x.shape[:-1] + w.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.t())
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
+def row_matmul(x: torch.Tensor, w: torch.Tensor, local: bool
+               ) -> torch.Tensor:
+    """``x @ w`` for a product whose contraction dim may be split over
+    "model" (``local``): there, from bfloat16 inputs, a float32 partial
+    sum that ``region_out`` sums and rounds to ``x``'s dtype once."""
+    if local and dctx.model_group() is not None and x.dtype in _LOW:
+        return _RowMatmul.apply(x, w)
+    return torch.matmul(x, w)
+
+
+def region_out(out: torch.Tensor, local: bool,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The block's output back to the residual stream: the ranks' partial
+    sums of a local block summed (under sequence parallelism
+    reduce-scattered by rows); a whole block's output as it is (its
+    rows scattered).  The sum rounds to ``dtype`` (a float32 partial
+    sum of ``row_matmul``)."""
+    g = dctx.model_group()
+    if g is not None:
+        if dctx.sp_active():
+            out = collectives.reduce_scatter_to_model(out, g, 1) if local \
+                else collectives.scatter_model(out, g, 1)
+        elif local:
+            out = collectives.reduce_from_model(out, g)
+    return out if dtype is None else out.to(dtype)
+
+
+def region_param(w: torch.Tensor) -> torch.Tensor:
+    """A replicated parameter used by rank-local compute: its gradient
+    summed over "model"."""
+    g = dctx.model_group()
+    return w if g is None else collectives.copy_to_model(w, g)
+
+
+def row_param(w: torch.Tensor) -> torch.Tensor:
+    """A replicated parameter applied to the residual stream's rows (a
+    norm's scale, an output bias, a gate): under sequence parallelism
+    each rank holds some rows, so its gradient is summed over "model"."""
+    return region_param(w) if dctx.sp_active() else w
+
+
+def whole_param(w: torch.Tensor, logical: Optional[str], dim: int,
+                size: int) -> torch.Tensor:
+    """A parameter that rank-local compute uses whole (a head_dim norm,
+    Mamba-2's conv over mixed channels): gathered where the rules split
+    its ``dim`` of ``size`` (``logical``), the gradient summed either way."""
+    g = dctx.model_group()
+    if g is None:
+        return w
+    if dctx.is_local(logical, size):
+        return collectives.gather_model(w, g, dim, sum_grad=True)
+    return collectives.copy_to_model(w, g)
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream with all its rows (gathered under sequence
+    parallelism; the gradient this rank's rows)."""
+    g = dctx.model_group()
+    if g is None or not dctx.sp_active():
+        return x
+    return collectives.gather_model(x, g, 1)
+
+
+def sharded_rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` over a last dim split over "model" (``x`` and
+    ``gamma`` the rank's channels): the sum of squares summed over the
+    ranks."""
+    g = dctx.model_group()
+    if g is None:
+        return rms_norm(x, gamma, eps)
+    xf = x.float()
+    n = xf.shape[-1] * dctx.model_size()
+    ss = collectives.sum_in_region(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                   g)
+    y = xf * torch.rsqrt(ss / n + eps)
+    return (y * gamma.float()).to(x.dtype)

@@ -12,7 +12,9 @@ token order weighted by their gates.  The combine places each choice's
 weighted output by the inverse of the sort and sums a token's k choices,
 which is the reference's scatter-add without its float atomics on the
 card.  ``models/moe_ep.py`` runs the same routing and dispatch with the
-experts spread over ranks.
+experts spread over ranks.  Under a tensor-parallel context the MLP
+splits its hidden width over ``"model"`` (``mlp(d_ff=)``); the MoE block
+runs on whole weights, every rank the same compute.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import common
 from repro_torch.models.common import Spec, shard
 
@@ -41,22 +44,37 @@ def mlp_specs(d_model: int, d_ff: int, use_bias: bool = False,
     return s
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D], in x's dtype."""
-    u = torch.matmul(x, p["w_up"].to(x.dtype))
+def mlp(p, x: torch.Tensor, *, d_ff: Optional[int] = None) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D], in x's dtype.
+
+    With ``d_ff`` (the whole hidden width) the MLP is a block of the
+    residual stream under the installed tensor-parallel context: where
+    the rules split ``ff`` over ``"model"`` the rank holds its columns of
+    ``w_up`` / ``w_gate`` and rows of ``w_down`` (column- then
+    row-parallel) and the partial outputs are summed
+    (``common.region_out``).  Without it (the shared expert inside a MoE
+    block) the weights are taken as they are."""
+    local = d_ff is not None and dctx.is_local("ff", d_ff)
+    if d_ff is not None:
+        x = common.region_in(x, local)
+    dt = x.dtype
+    u = common.col_matmul(x, p["w_up"].to(dt), local)
     if "b_up" in p:
-        u = u + p["b_up"].to(x.dtype)
+        u = u + p["b_up"].to(dt)
     if "w_gate" in p:       # SwiGLU
-        g = torch.matmul(x, p["w_gate"].to(x.dtype))
+        g = common.col_matmul(x, p["w_gate"].to(dt), local)
         if "b_gate" in p:
-            g = g + p["b_gate"].to(x.dtype)
+            g = g + p["b_gate"].to(dt)
         g = shard(g, "batch", "seq", "ff")
         h = common.swiglu(g, u)
     else:                       # ungated GELU (hubert / wav2vec2 family)
         h = common.gelu(shard(u, "batch", "seq", "ff"))
-    out = torch.matmul(h, p["w_down"].to(x.dtype))
+    out = common.row_matmul(h, p["w_down"].to(dt), local)
+    if d_ff is not None:
+        out = common.region_out(out, local, dt)
     if "b_down" in p:
-        out = out + p["b_down"].to(x.dtype)
+        b = p["b_down"] if d_ff is None else common.row_param(p["b_down"])
+        out = out + b.to(out.dtype)
     return shard(out, "batch", "seq", None)
 
 

@@ -11,6 +11,15 @@ plain torch products, as they stay outside any Pallas kernel in the
 reference.  Casts to the compute dtype happen where the reference's do, so
 the bfloat16 path rounds where JAX's does.  Decode keeps O(1) state and
 takes one step in plain torch.
+
+Under a tensor-parallel context whose rules split the SSD ``heads`` and
+the inner width (``ff``) over ``"model"``, the rank runs its heads: its
+columns of ``w_z`` / ``w_x`` / ``w_dt``, the whole ``w_B`` / ``w_C``
+(every head reads them), the conv over its channels and B / C, the gated
+norm over its channels with the sum of squares summed over the ranks,
+``decay_scan`` over its heads' channels and its rows of ``w_out`` (the
+output summed).  A decode state holds the rank's heads and conv
+channels (``local_conv_state`` takes them from a whole one).
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import Spec, shard
@@ -61,16 +71,65 @@ class SSMState(NamedTuple):
     h: torch.Tensor     # [B, H, N, P] fp32 SSM state
 
 
+def is_local(cfg) -> bool:
+    """Whether the block runs on the rank's heads (the rules split both
+    the heads and the inner width over ``"model"``)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return dctx.is_local("heads", d_inner // cfg.ssm_head_dim) \
+        and dctx.is_local("ff", d_inner)
+
+
+def _conv_channels(cfg, device) -> torch.Tensor:
+    """The conv channels the rank uses: its inner channels, then every
+    B and C channel."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    sl = dctx.local_slice("ff", d_inner)
+    GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
+    return torch.cat([torch.arange(sl.start, sl.stop, device=device),
+                      torch.arange(d_inner, d_inner + GN2, device=device)])
+
+
+def _tp_params(p, cfg, local: bool):
+    """The rank's parameters: every head reads the whole ``w_B``, ``w_C``
+    and the conv (split over mixed channels, so gathered and cut to the
+    rank's channels); their gradients are summed."""
+    if not local:
+        return p
+    p = dict(p)
+    for k in ("w_B", "w_C"):
+        p[k] = common.region_param(p[k])
+    idx = _conv_channels(cfg, p["conv_w"].device)
+    for k, dim in (("conv_w", 1), ("conv_b", 0)):
+        w = common.whole_param(p[k], "ff", dim, _conv_len(cfg))
+        p[k] = w.index_select(dim, idx)
+    return p
+
+
+def _conv_len(cfg) -> int:
+    return cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def local_conv_state(conv: torch.Tensor, cfg) -> torch.Tensor:
+    """A whole decode conv state [B, W-1, conv_ch] -> the rank's channels
+    (as is where the block runs whole)."""
+    if not is_local(cfg) or conv.shape[-1] != _conv_len(cfg):
+        return conv
+    return conv.index_select(2, _conv_channels(cfg, conv.device))
+
+
 def ssd_block(p, x: torch.Tensor, cfg, return_state: bool = False):
     """Prefill SSD.  x: [B, S, D] -> [B, S, D] (+ final SSMState).
 
     S must be a multiple of ``min(ssm_chunk, S)``, as in the reference:
     nothing is padded.
     """
-    B, S, D = x.shape
+    local = is_local(cfg)
     dtype = x.dtype
-    d_inner = cfg.ssm_expand * D
+    x = common.region_in(x, local)
+    p = _tp_params(p, cfg, local)
+    B, S, _ = x.shape
     P = cfg.ssm_head_dim
+    d_inner = p["w_x"].shape[-1]             # the rank's inner channels
     H = d_inner // P
     G, N = cfg.ssm_groups, cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -79,11 +138,8 @@ def ssd_block(p, x: torch.Tensor, cfg, return_state: bool = False):
                          f"of the chunk {Q}")
     nC = S // Q
 
-    z = torch.matmul(x, p["w_z"].to(dtype))
-    xc = torch.matmul(x, p["w_x"].to(dtype))
-    Bm = torch.matmul(x, p["w_B"].to(dtype))
-    Cm = torch.matmul(x, p["w_C"].to(dtype))
-    dt = torch.matmul(x, p["w_dt"].to(dtype))
+    z, xc, Bm, Cm, dt = (common.col_matmul(x, p[k].to(dtype), local)
+                         for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)
     conv_out = F.silu(common.causal_conv(conv_in, p["conv_w"].to(dtype),
@@ -136,14 +192,20 @@ def ssd_block(p, x: torch.Tensor, cfg, return_state: bool = False):
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + p["D_skip"].to(dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, d_inner)
-    y = common.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["w_out"].to(dtype))
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg.norm_eps, local)
+    out = common.region_out(common.row_matmul(y, p["w_out"].to(dtype),
+                                              local), local, dtype)
     if return_state:
         W = cfg.ssm_conv_width
         # the last W-1 inputs of the conv, zeros before the first token
         conv = F.pad(conv_in, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
-        return out, SSMState(conv=conv.contiguous(), h=h_final)
+        return out, SSMState(conv=conv.to(dtype).contiguous(), h=h_final)
     return out
+
+
+def _gated_norm(y, gamma, eps, local):
+    return common.sharded_rms_norm(y, gamma, eps) if local else \
+        common.rms_norm(y, gamma, eps)
 
 
 def ssd_init_state(cfg, batch: int, dtype, device) -> SSMState:
@@ -159,24 +221,24 @@ def ssd_init_state(cfg, batch: int, dtype, device) -> SSMState:
 
 def ssd_decode_step(p, x: torch.Tensor, state: SSMState, cfg):
     """Single-token SSD step.  x: [B, 1, D] -> ([B, 1, D], state)."""
+    local = is_local(cfg)
+    xt = common.region_in(x, local)[:, 0]
+    dtype = xt.dtype
+    p = _tp_params(p, cfg, local)
     B = x.shape[0]
-    dtype = x.dtype
-    d_inner = cfg.ssm_expand * cfg.d_model
     P = cfg.ssm_head_dim
+    d_inner = p["w_x"].shape[-1]             # the rank's inner channels
     H = d_inner // P
     G, N = cfg.ssm_groups, cfg.ssm_state
+    state = SSMState(conv=local_conv_state(state.conv, cfg), h=state.h)
 
-    xt = x[:, 0]
-    z = xt @ p["w_z"].to(dtype)
-    xc = xt @ p["w_x"].to(dtype)
-    Bm = xt @ p["w_B"].to(dtype)
-    Cm = xt @ p["w_C"].to(dtype)
-    dt = xt @ p["w_dt"].to(dtype)
+    z, xc, Bm, Cm, dt = (common.col_matmul(xt, p[k].to(dtype), local)
+                         for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)                  # [B, C]
     hist = torch.cat([state.conv, conv_in[:, None].to(state.conv.dtype)],
                      dim=1)                                    # [B, W, C]
-    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist,
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", hist.to(dtype),
                                    p["conv_w"].to(dtype))
                       + p["conv_b"].to(dtype))
     xc, Bm, Cm = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
@@ -195,6 +257,7 @@ def ssd_decode_step(p, x: torch.Tensor, state: SSMState, cfg):
     y = torch.einsum("bhn,bhnp->bhp", Ch, h)
     y = y + p["D_skip"].float()[None, :, None] * xh
     y = y.reshape(B, d_inner).to(dtype)
-    y = common.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(dtype)
+    y = _gated_norm(y * F.silu(z), p["norm"], cfg.norm_eps, local)
+    out = common.region_out(common.row_matmul(y, p["w_out"].to(dtype),
+                                              local), local, dtype)
     return out[:, None], SSMState(conv=hist[:, 1:], h=h)

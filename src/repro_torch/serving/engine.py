@@ -22,38 +22,74 @@ there; the port's refuses the family with a ``ValueError``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
-
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.distributed import collectives
+from repro_torch.distributed import context as dctx
 from repro_torch.models import backbone
 from repro_torch.models.common import tree_leaves, tree_map
 
 
 def _serving(params, mcfg):
     """(parameters in the serving layout, the ``gather`` to run them
-    with): sharded parameters (DTensor leaves, the JAX layout) are
-    gathered a layer at a time where the step uses them; others are run
-    as they are."""
+    with, the tensor-parallel context to run them in): sharded parameters
+    (DTensor leaves, the JAX layout) are gathered a layer at a time where
+    the step uses them, over the mesh's other axes, the rank keeping its
+    ``"model"`` shards where the installed rules give the model a
+    tensor-parallel split (``distributed.context.tp_context``); others are
+    run as they are."""
     leaves = tree_leaves(params)
     if not leaves or not isinstance(leaves[0], DTensor):
-        return params, None
-    return backbone.serving_params(params, mcfg), \
-        lambda t: tree_map(collectives.whole, t)
+        return params, None, contextlib.nullcontext()
+    mesh, rules = leaves[0].device_mesh, dctx.get_rules()
+    keep = dctx.split_model_dim(mesh) if rules is not None else None
+
+    def gather(t, whole=False):
+        k = None if whole else keep
+        return tree_map(lambda p: collectives.local_part(
+            p, [pl if i == k else Replicate()
+                for i, pl in enumerate(p.placements)]), t)
+    tp = dctx.tp_context(mesh if keep is not None else None, rules)
+    return backbone.serving_params(params, mcfg), gather, tp
 
 
-def _rows(x):
-    """This rank's batch rows of a DTensor (every other dim gathered); a
-    plain tensor as it is."""
+def _rows(x, keep: Optional[int] = None):
+    """This rank's batch rows of a DTensor (and its shard on mesh dim
+    ``keep``; every other dim gathered); a plain tensor as it is."""
     if not isinstance(x, DTensor):
         return x
-    keep = [p if p.is_shard() and p.dim == 0 else Replicate()
-            for p in x.placements]
-    return x.redistribute(x.device_mesh, keep).to_local()
+    return collectives.local_part(x, [
+        p if i == keep or (p.is_shard() and p.dim == 0) else Replicate()
+        for i, p in enumerate(x.placements)])
+
+
+def _local_state(state, mcfg):
+    """A decode state of DTensors (placed by ``decode_state_axes``) as the
+    rank holds it under the installed split: its batch rows, its slots of
+    an attention cache, its channels of an RG-LRU state and heads of an
+    SSD one; an SSD conv state and a cross layer's memory whole (their
+    split dims are not the rank's compute's)."""
+    leaves = tree_leaves(state.layers)
+    keep = None
+    if leaves and isinstance(leaves[0], DTensor) and \
+            dctx.get_rules() is not None:
+        keep = dctx.split_model_dim(leaves[0].device_mesh)
+    layers = []
+    for kind, c in zip(backbone.layer_plan(mcfg).kinds, state.layers):
+        if kind == "ssd":
+            c = type(c)(conv=_rows(c.conv), h=_rows(c.h, keep))
+        elif kind == "cross":
+            c = tree_map(_rows, c)
+        else:
+            c = tree_map(lambda x: _rows(x, keep), c)
+        layers.append(c)
+    return backbone.DecodeState(pos=state.pos, layers=tuple(layers),
+                                max_len=state.max_len)
 
 
 def make_serve_step(run: RunConfig, kind: str, *,
@@ -61,32 +97,34 @@ def make_serve_step(run: RunConfig, kind: str, *,
                     max_len: Optional[int] = None):
     """The serve step of ``kind``.  Under a mesh (parameters as DTensors
     in the JAX layout, ``launch.shardings``) the step gathers each layer's
-    parameters whole where it runs the layer, serves this rank's rows of
-    the batch and of the decode state (every other dim of a cache
-    gathered) and returns this rank's rows: no tensor-parallel compute,
-    and a decode step gathers its ``kv_seq``-sharded caches (the
-    reference combines partial softmaxes instead)."""
+    parameters over the data axes where it runs the layer and, under the
+    installed rules, runs the model tensor-parallel over ``"model"`` (each
+    rank on its heads, channels and vocab columns); it serves this rank's
+    rows of the batch and returns them.  The decode state holds the rank's
+    rows and, where the rules split them, its ``kv_seq`` slots of every
+    attention cache: a decode step attends them where they lie and merges
+    the ranks' partial softmaxes, moving no slot."""
     mcfg = run.model
     if kind == "prefill":
         if not mcfg.causal:
             def encode_step(params, frames):
-                params, gather = _serving(params, mcfg)
-                return backbone.encode(params, mcfg, _rows(frames),
-                                       compute_dtype=compute_dtype,
-                                       gather=gather)
+                params, gather, tp = _serving(params, mcfg)
+                with tp:
+                    return backbone.encode(params, mcfg, _rows(frames),
+                                           compute_dtype=compute_dtype,
+                                           gather=gather)
             return encode_step
 
         def prefill_step(params, tokens, image_embeds=None,
                          layer_metrics=None):
-            params, gather = _serving(params, mcfg)
-            return backbone.prefill(params, mcfg, _rows(tokens),
-                                    max_len=max_len,
-                                    compute_dtype=compute_dtype,
-                                    cache_dtype=compute_dtype,
-                                    image_embeds=None if image_embeds is None
-                                    else _rows(image_embeds),
-                                    layer_metrics=layer_metrics,
-                                    gather=gather)
+            params, gather, tp = _serving(params, mcfg)
+            with tp:
+                return backbone.prefill(
+                    params, mcfg, _rows(tokens), max_len=max_len,
+                    compute_dtype=compute_dtype, cache_dtype=compute_dtype,
+                    image_embeds=None if image_embeds is None
+                    else _rows(image_embeds),
+                    layer_metrics=layer_metrics, gather=gather)
         return prefill_step
 
     if kind == "decode":
@@ -95,12 +133,13 @@ def make_serve_step(run: RunConfig, kind: str, *,
                              f"decode step")
 
         def decode_step(params, state, tokens):
-            params, gather = _serving(params, mcfg)
-            state = backbone.DecodeState(pos=state.pos, layers=tree_map(
-                _rows, state.layers))
-            return backbone.decode_step(params, mcfg, state, _rows(tokens),
-                                        compute_dtype=compute_dtype,
-                                        gather=gather)
+            params, gather, tp = _serving(params, mcfg)
+            state = _local_state(state, mcfg)
+            with tp:
+                return backbone.decode_step(params, mcfg, state,
+                                            _rows(tokens),
+                                            compute_dtype=compute_dtype,
+                                            gather=gather)
         return decode_step
 
     raise ValueError(kind)

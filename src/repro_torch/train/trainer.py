@@ -148,13 +148,16 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
     def grad_fn(params, micro):
         """The loss and metrics (detached); the gradients into .grad.
         Under a mesh (DTensor parameters, a batch sharded over the data
-        axes) each rank runs the model on its batch shard, gathering each
-        layer's parameters where it runs the layer (``_Gather``; again in
-        remat's recompute, as FSDP re-gathers), and the loss it
-        differentiates is its share of the global token mean, so the
-        gradients' sum over the data axes is the single-process gradient.
-        The model runs with no mesh installed: it sees plain tensors, and
-        ``moe_ep`` computes as the dense ``ffn.moe``."""
+        axes) each rank runs the model on its batch shard and, under the
+        installed rules, tensor-parallel over the mesh's ``"model"`` axis
+        (``distributed.context.tp_context``): each layer's parameters are
+        gathered over the other axes where the layer runs (``_Gather``;
+        again in remat's recompute, as FSDP re-gathers), keeping the
+        rank's ``"model"`` shards, or whole for a block that runs whole.
+        The loss it differentiates is its share of the global token mean,
+        so the gradients' sum over the data axes is the single-process
+        gradient.  No mesh is installed for the model itself: ``moe_ep``
+        computes as the dense ``ffn.moe``."""
         data = _data_dims(micro)
         if data is None:
             loss, metrics = loss_fn(params, micro)
@@ -162,9 +165,16 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}
         mesh = next(iter(micro.values())).device_mesh
         local = {k: x.to_local() for k, x in micro.items()}
-        with dctx.mesh_context(None):      # the recompute runs in here too
-            loss, metrics = loss_fn(params, local, gather=lambda t: tree_map(
-                lambda p: _Gather.apply(p, data), t))
+        rules = dctx.get_rules()
+        keep = dctx.split_model_dim(mesh) if rules is not None else None
+
+        def gather(t, whole=False):
+            k = None if whole else keep
+            return tree_map(lambda p: _Gather.apply(p, data, k), t)
+        # the recompute runs in here too
+        with dctx.mesh_context(None), dctx.tp_context(
+                mesh if keep is not None else None, rules):
+            loss, metrics = loss_fn(params, local, gather=gather)
             n = metrics["tokens"].detach()
             total = _sum_over(n, mesh, data)
             (loss * (n / total)).backward()
@@ -306,23 +316,30 @@ def _sum_over(x: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """A DTensor parameter gathered whole for the rank's compute; its
-    gradient, a rank's share over the data axes (every rank of the other
-    axes computing the same), reduced back onto the parameter's placements:
-    DTensor turns the data axes' ``Partial`` into a reduce-scatter where
-    the parameter is sharded and an all-reduce where it is replicated."""
+    """A DTensor parameter gathered for the rank's compute: over every
+    mesh dim but ``keep`` (the ``"model"`` dim, whose shard the rank
+    computes on; None: whole).  Its gradient, a rank's share over the data
+    axes ``data`` (every rank of the other axes computing the same, and a
+    kept shard's gradient complete on its rank), is reduced back onto the
+    parameter's placements: DTensor turns the data axes' ``Partial`` into
+    a reduce-scatter where the parameter is sharded and an all-reduce
+    where it is replicated."""
 
     @staticmethod
-    def forward(ctx, p, data: tuple):
-        ctx.mesh, ctx.placements, ctx.data = p.device_mesh, p.placements, \
-            data
-        return collectives.whole(p)
+    def forward(ctx, p, data: tuple, keep: Optional[int]):
+        ctx.mesh, ctx.placements, ctx.data, ctx.keep = \
+            p.device_mesh, p.placements, data, keep
+        ctx.shape, ctx.stride = p.shape, p.stride()
+        return collectives.local_part(p, [
+            pl if i == keep else Replicate()
+            for i, pl in enumerate(p.placements)])
 
     @staticmethod
     def backward(ctx, g):
-        placements = [Partial() if i in ctx.data else Replicate()
+        placements = [Partial() if i in ctx.data else
+                      ctx.placements[i] if i == ctx.keep else Replicate()
                       for i in range(ctx.mesh.ndim)]
         return DTensor.from_local(g.contiguous(), ctx.mesh, placements,
-                                  run_check=False).redistribute(
-            ctx.mesh, ctx.placements), None
-
+                                  run_check=False, shape=ctx.shape,
+                                  stride=ctx.stride).redistribute(
+            ctx.mesh, ctx.placements), None, None

@@ -13,12 +13,15 @@ process, torn down after the module.
   each pattern group, and the backward's two products a weight), less
   each group's last down-projection once (the recompute stops at the
   last tensor the backward saved, ``torch.utils.checkpoint``'s early
-  stop: that product's output is not one), the head's four times
+  stop: that product's output is not one; split over the model axis it
+  is an autograd Function and runs before the stop), the head's four times
   (each ``chunked_xent`` chunk is recomputed), and attention's 4 FLOPs a
   kept (query, key) pair a head dim twice (forward, recompute) plus the
   backward's 10.  Tokens are the rank's:
-  the batch over the data axes (the model axis replicates the compute).
-  The band is therefore zero wide: rtol 1e-12, for float summation.
+  the batch over the data axes; the model axis divides each product whose
+  split dim (heads, KV heads, ff, vocab) it divides, as the rank computes
+  on its shard (``dense_train_flops(model=)``).  The band is therefore
+  zero wide: rtol 1e-12, for float summation.
 * One full-width cell, SmolLM-360M train_4k on the (16, 16) mesh, held
   the same way, its argument bytes to ``launch.shardings``'.
 """
@@ -57,22 +60,37 @@ def teardown_group():
         dist.destroy_process_group()
 
 
-def dense_train_flops(cfg, tokens_per_seq: int, seqs: int) -> float:
+def dense_train_flops(cfg, tokens_per_seq: int, seqs: int,
+                      model: int = 1) -> float:
     """The analytic FLOPs of a dense model's remat'd train step on
-    ``seqs`` sequences (module docstring)."""
+    ``seqs`` sequences (module docstring), on one rank of a ``model``-wide
+    tensor-parallel axis: each product whose split dim (heads, KV heads,
+    ff, vocab) ``model`` divides runs on the rank's share of it."""
     assert cfg.family == "dense" and cfg.first_dense_layers == 0
     D, H, Kh, Dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    gemm = D * H * Dh + 2 * D * Kh * Dh + H * Dh * D \
-        + (3 if cfg.mlp_gated else 2) * D * F
-    head = D * backbone.padded_vocab(cfg)
+    Vp = backbone.padded_vocab(cfg)
+
+    def split(n):
+        return n // model if n % model == 0 else n
+
+    Hl = split(H)
+    # KV heads split only where they divide; else each rank projects all
+    Khl = split(Kh) if Hl < H else Kh
+    Fl = split(F)
+    gemm = D * Hl * Dh + 2 * D * Khl * Dh + Hl * Dh * D \
+        + (3 if cfg.mlp_gated else 2) * D * Fl
+    head = D * split(Vp)
     T = tokens_per_seq * seqs
-    # one layer a pattern group; its recompute skips the last product
-    gemms = 2 * T * (4 * (cfg.num_layers * gemm + head)
-                     - cfg.num_layers * F * D)
+    # one layer a pattern group; its recompute skips the last product,
+    # unless the model axis splits it: a row-parallel product
+    # (``common.row_matmul``) is an autograd Function, whose forward runs
+    # whole before its saved tensors pack, so the early stop comes after
+    skipped = 0 if Fl < F else cfg.num_layers * Fl * D
+    gemms = 2 * T * (4 * (cfg.num_layers * gemm + head) - skipped)
     pairs = attended_pairs(tokens_per_seq, tokens_per_seq, cfg.causal,
                            cfg.attn_window)
-    attn = cfg.num_layers * (2 * 4 + 10) * seqs * H * Dh * pairs
+    attn = cfg.num_layers * (2 * 4 + 10) * seqs * Hl * Dh * pairs
     return float(gemms + attn)
 
 
@@ -89,8 +107,9 @@ def test_dryrun_cell_small_mesh():
     assert rec["memory"]["peak_bytes_estimate"] >= \
         rec["memory"]["argument_size_in_bytes"]
     assert rec["model_flops"] == 6 * rec["params_active"] * 8 * 64
-    # 8 sequences over 4 data ranks: 2 a rank
-    want = dense_train_flops(run.model, 64, 2)
+    # 8 sequences over 4 data ranks: 2 a rank; the model axis of 2 splits
+    # the heads, KV heads, ff and vocab
+    want = dense_train_flops(run.model, 64, 2, model=2)
     assert rec["flops_per_device"] == pytest.approx(want, rel=1e-12)
     # FSDP: parameters gathered, gradients reduce-scattered
     assert rec["collective_by_kind"]["all-gather"] > 0
@@ -110,7 +129,8 @@ def test_dryrun_skips_what_applicable_skips():
 
 def test_full_width_cell_on_the_production_mesh():
     """SmolLM-360M train_4k on the (16, 16) mesh at full width: 256
-    sequences over 16 data ranks, 16 a rank."""
+    sequences over 16 data ranks, 16 a rank; its 15 heads and 5 KV heads
+    stay whole on the model axis of 16, its ff and vocab split."""
     from repro_torch.distributed import context as dctx
     from repro_torch.distributed import sharding
     from repro_torch.launch import shardings
@@ -118,7 +138,7 @@ def test_full_width_cell_on_the_production_mesh():
     rec = dryrun.run_cell("smollm-360m", "train_4k", "single")
     assert rec["status"] == "ok" and rec["devices"] == 256
     cfg = load_config("smollm-360m").model
-    want = dense_train_flops(cfg, 4096, 16)
+    want = dense_train_flops(cfg, 4096, 16, model=16)
     assert rec["flops_per_device"] == pytest.approx(want, rel=1e-12)
     run = load_config("smollm-360m")
     mesh = dryrun.fake_mesh("single")
@@ -128,3 +148,24 @@ def test_full_width_cell_on_the_production_mesh():
             shardings.batch_sds(run, shapes.SHAPES["train_4k"], mesh),
             shardings.rng_sds(mesh))
     assert rec["memory"]["argument_size_in_bytes"] == args
+
+
+def test_seq_parallel_cell():
+    """The ``--seq-parallel`` rules on a smoke Qwen3 train cell: the record
+    says so, the FLOPs are the default rules' (the same products), and the
+    residual stream's rows move by reduce-scatter and all-gather where the
+    default rules all-reduce."""
+    run = load_smoke_config("qwen3-4b")
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, grad_accum=1))
+    shape = shapes.ShapeSpec("t", 64, 8, "train")
+    base = dryrun.run_cell("qwen3-4b", "t", "4x2", run=run, shape=shape)
+    sp = dryrun.run_cell("qwen3-4b", "t", "4x2", run=run, shape=shape,
+                         seq_parallel=True)
+    assert base["seq_parallel"] is False and sp["seq_parallel"] is True
+    assert sp["flops_per_device"] == base["flops_per_device"]
+    kinds = sp["collective_by_kind"]
+    assert kinds["reduce-scatter"] > base["collective_by_kind"][
+        "reduce-scatter"]
+    assert kinds.get("all-reduce", 0) < base["collective_by_kind"][
+        "all-reduce"]

@@ -296,7 +296,9 @@ def test_remat_runs_each_group_forward_twice():
     np_params = jax.tree.map(np.asarray, jparams)
     batch = torch_batch(make_batch(cfg, seed=2))
     calls = {"attn": 0, "scan": 0}
-    attn, scan = ref.attention_ref, ref.decay_scan_ref
+    # on the CPU the model's attention is ref.chunked_attention (the JAX
+    # models' order, differentiated by autograd)
+    attn, scan = ref.chunked_attention, ref.decay_scan_ref
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -308,7 +310,7 @@ def test_remat_runs_each_group_forward_twice():
     for remat in (False, True):
         params = from_jax_train_params(cfg, np_params, device="cpu")
         calls.update(attn=0, scan=0)
-        ref.attention_ref = count("attn", attn)
+        ref.chunked_attention = count("attn", attn)
         ref.decay_scan_ref = count("scan", scan)
         try:
             loss, _ = backbone.train_loss(params, cfg, batch,
@@ -316,7 +318,7 @@ def test_remat_runs_each_group_forward_twice():
                                           remat=remat)
             loss.backward()
         finally:
-            ref.attention_ref, ref.decay_scan_ref = attn, scan
+            ref.chunked_attention, ref.decay_scan_ref = attn, scan
         grads[remat] = [p.grad for p in tree_leaves(params)]
         plan = backbone.layer_plan(cfg)
         n_rec = plan.pattern.count("rec") * plan.n_groups

@@ -5,7 +5,8 @@ production meshes.
 
 For every config x shape x mesh ((16, 16) ``("data", "model")`` and
 (2, 16, 16) ``("pod", "data", "model")``) x rule table (``fsdp=True``,
-the train table, and ``False``, the serve one), exactly:
+the train table; ``False``, the serve one; and the train table with
+``seq_parallel`` and ``expert_data_shard``), exactly:
 
 * every leaf of the train state (parameters, AdamW's moments or
   Adafactor's factored ones, the master copy and the sync buffers where
@@ -149,12 +150,14 @@ def _jax_decode_per_layer(jstate, cfg):
     return out
 
 
-@pytest.mark.parametrize("fsdp", [True, False], ids=["train_rules",
-                                                      "serve_rules"])
+@pytest.mark.parametrize("rules_kw", [
+    dict(fsdp=True), dict(fsdp=False),
+    dict(fsdp=True, seq_parallel=True, expert_data_shard=True)],
+    ids=["train_rules", "serve_rules", "sp_rules"])
 @pytest.mark.parametrize("mesh_name", ["single", "multi"])
 @pytest.mark.parametrize("shape_name", jshapes.SHAPE_ORDER)
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_placements_match_jax(arch, shape_name, mesh_name, fsdp,
+def test_placements_match_jax(arch, shape_name, mesh_name, rules_kw,
                               fake_group):
     mesh = fake_group(mesh_name)
     run, jrun = load_config(arch), jax_config(arch)
@@ -166,8 +169,8 @@ def test_placements_match_jax(arch, shape_name, mesh_name, fsdp,
     assert backbone.active_params(run.model) == \
         jbackbone.active_params(jrun.model)
 
-    rules = sharding.make_rules(fsdp=fsdp)
-    jrules = jsharding.make_rules(fsdp=fsdp)
+    rules = sharding.make_rules(**rules_kw)
+    jrules = jsharding.make_rules(**rules_kw)
     assert rules == jrules
     with _jax_rules(mesh_name, jrules) as amesh:
         jstate = jshardings.train_state_sds(jrun, amesh)

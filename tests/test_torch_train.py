@@ -360,9 +360,10 @@ def bf16_acc_bounds(n_micro):
 # same blocks and, on the same gradients, agrees to 5e-7.
 HT_2WAY_GAP = ("HT sync on a 2-way accumulation with a straggler mask, 3 "
                "chained steps: the parameters part by 1.8e-3 of their move "
-               "(bound 1e-3; without the sync 6.7e-5); step 1 alone agrees "
-               "to 2.3e-5 of its update, and JAX moved by that gap parts "
-               "from itself by 1.0e-3 to 2.0e-3")
+               "(bound 1e-3; without the sync 6.2e-5), the CPU attention in "
+               "JAX's chunked order too; step 1 alone agrees to 2.2e-5 of "
+               "its update, and JAX moved by that gap parts from itself by "
+               "1.0e-3 to 2.0e-3")
 
 
 def _three_steps_cases():
