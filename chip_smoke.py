@@ -8,7 +8,7 @@ It builds the port's four CUDA kernel sources from this checkout
 ``flash_attention_bwd``: one ``nvcc`` each for ``sm_90a``, all started
 together, into ``build/``), checks with ``cuobjdump`` that the bfloat16
 attention kernels (the forward, and the backward's dK/dV and dQ kernels)
-hold ``HGMMA`` (tensor-core) instructions, then runs thirteen phases; any
+hold ``HGMMA`` (tensor-core) instructions, then runs fourteen phases; any
 failure raises (in a rank too) and the script exits non-zero.
 
 1. Kernel: ``thinning_rmw`` on the card against its plain PyTorch
@@ -214,7 +214,8 @@ failure raises (in a rank too) and the script exits non-zero.
    the plan's (a backward call counts once, the reduction of a split
    group included), a falling loss, s/step, tok/s, peak memory.
 13. Training under a mesh (after phase 12): (a) SmolLM-360M at full
-   width and depth (bfloat16, AdamW with float32 master weights) takes 3
+   width, 16 of its 32 layers (bfloat16, AdamW with float32 master
+   weights; cut for the script's time since phase 14 (d)-(f)) takes 3
    steps on phase 12's batch (2 x 4096 tokens) on a ("data", "model") =
    (2, 2) mesh of 4 gloo ranks sharing the card, its state placed by the
    train rules (``launch.shardings.init_train_state``; 15 heads and 5 KV
@@ -242,12 +243,14 @@ failure raises (in a rank too) and the script exits non-zero.
    one process's steps.  Collectives (``CommDebugMode``) and s/step are
    printed.
 14. Tensor parallelism over "model" (after phase 13), 4 gloo ranks
-   sharing the card: (a) Qwen3-4B at full width, 4 of 36 layers, 3 AdamW
+   sharing the card: (a) Qwen3-4B at full width, 2 of 36 layers (4 until
+   phase 14 (d)-(f) came; cut for the script's time), 3 AdamW
    steps (as phase 13's: bfloat16, and again in float32) on phase 13's
    batch on ("data", "model") = (2, 2), each rank on its 16 heads, 4 KV
    heads and half the ff and vocab, held to one process that splits the batch as the data
    ranks do at phase 13's gates, with s/step and argument bytes against
-   the placements; (b) Qwen3-4B at full width and depth on (1, 4): one
+   the placements; (b) Qwen3-4B at full width, 8 of 36 layers (all until
+   phase 14 (d)-(f) came; the script's time), on (1, 4): one
    process serves a 2 x 4096 prompt and 8 greedy steps first, then the
    mesh does (8 heads, 2 KV heads, a quarter of ff and vocab and of every
    cache's ``kv_seq`` slots a rank) fed the same tokens: each step's
@@ -255,7 +258,29 @@ failure raises (in a rank too) and the script exits non-zero.
    greedy token a near tie, a decode step's collective bytes the same
    every step and within ``_tp_decode_budget`` (O(B H D), no cache slot
    moves); (c) each rank's attention and scan calls at its local shapes
-   against their plain versions.
+   against their plain versions.  The MoE on "model": (d) Qwen2-MoE-A2.7B
+   at full width, 2 of 24 layers, 3 AdamW steps on the same batch and
+   mesh (bfloat16, and again computed in float32), each rank on half the
+   slots of 32 of the 64 experts (the buffer's capacity split over
+   "data"), half the shared expert's ff and 8 of 16 heads, the routing
+   the whole batch's (statistics, capacity and slots summed over the data
+   ranks), held to one process on the whole batch (the single program; a
+   witness split as the data ranks split would route each half alone) at
+   ``MOE_TP_GATES``: in float32 ``MESH_GATES`` and every MoE call's drop
+   fraction the same count of kept choices on both sides, in bfloat16
+   gates read from sound and planted runs; the first step's router
+   gradients gated too; s/step, argument bytes against placements and
+   the peak memory printed; (e) Qwen2-MoE serves on (1, 4) (16 experts a
+   rank), one process first, a 2 x 4096 prompt and 8 greedy steps fed
+   the same tokens: bfloat16 at full depth (each step's logits within
+   ``MOE_SERVE_BF16_REL_L2`` of one process's, read from sound and
+   planted runs, any differing greedy token a near tie, a decode step's
+   bytes the same
+   every step and within ``_tp_decode_budget`` plus one float32
+   all-reduce of [B, 1, D] a MoE layer, beside the bytes of the whole-MoE
+   gather it replaces) and computed in float32 at 4 layers within 1e-3;
+   (f) the attention kernels at (d)'s and (e)'s local shapes against
+   their plain versions, timed beside the bound and SDPA.
 
 After phase 11 the ``scaled_dot_product_attention`` call of phase 4 is
 timed under each backend that accepts its boolean mask, and the backend
@@ -2091,18 +2116,18 @@ def short_request_checks(run, params, prompts, bf16_limit,
 @contextlib.contextmanager
 def router_calls(forced=None):
     """The router logits over the logical experts (float32, [T, E]) and
-    the expert ids it chose ([T, k]) at every ``ffn.route`` call in the
-    block, in order.  With ``forced`` (one [T, k] id tensor a call), the
-    i-th call goes on with ``forced[i]``'s experts instead of its own,
+    the expert ids it chose ([T, k]) at every ``ffn.route_over`` call in
+    the block, in order.  With ``forced`` (one [T, k] id tensor a call),
+    the i-th call goes on with ``forced[i]``'s experts instead of its own,
     weighted by its own probabilities renormalised over them; the record
     keeps its own choice."""
     from repro_torch.models import ffn
 
-    calls, inner = [], ffn.route
+    calls, inner = [], ffn.route_over
 
-    def recorded(xf, router_w, num_experts, top_k):
-        gate_w, eid, aux, z = inner(xf, router_w, num_experts, top_k)
-        logits = torch.matmul(xf.float(), router_w.float())[:, :num_experts]
+    def recorded(logits, num_experts, top_k, groups):
+        gate_w, eid, aux, z = inner(logits, num_experts, top_k, groups)
+        logits = logits[:, :num_experts]
         calls.append((logits, eid))
         if forced is not None:
             eid = forced[len(calls) - 1]
@@ -2110,11 +2135,11 @@ def router_calls(forced=None):
             gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True),
                                               1e-9)
         return gate_w, eid, aux, z
-    ffn.route = recorded
+    ffn.route_over = recorded
     try:
         yield calls
     finally:
-        ffn.route = inner
+        ffn.route_over = inner
 
 
 def serve_routing(serve, L, B, P, N):
@@ -3487,17 +3512,18 @@ def new_path_launches(family_launches, kernel) -> dict:
 
 # ---------------------------------------- phase 13: training under a mesh
 # (label, arch, layers kept (None: all), TrainConfig overrides besides
-# warmup_steps=1): SmolLM-360M at full width and depth, and
+# warmup_steps=1): SmolLM-360M at full width, 16 of its 32 layers (the
+# script's time: phase 14 (d)-(f) take ~215 s), and
 # RecurrentGemma-2B at full width with one pattern group (rec, rec, attn)
 # and micro-batches of the whole batch (its grad_accum of 2 would leave one
 # row a micro-batch, which 2 data ranks do not divide: the rules would
 # replicate it); both in bfloat16, as users train, at MESH_GATES'
 # bfloat16 bounds, and RecurrentGemma again computed in float32 at the
 # float32 bounds, a tighter check of the same split compute (SmolLM's
-# float32 run, 32 layers of host-staged collectives, is left out for the
+# float32 run, host-staged collectives a layer, is left out for the
 # script's time)
 MESH_F32 = {"compute_dtype": "float32"}
-MESH_RUNS = [("smollm", "smollm-360m", None, {}),
+MESH_RUNS = [("smollm", "smollm-360m", 16, {}),
              ("recurrentgemma_1group", ARCH, 3, {"grad_accum": 1}),
              ("recurrentgemma_1group_f32", ARCH, 3,
               {"grad_accum": 1, **MESH_F32})]
@@ -3554,21 +3580,29 @@ def _steps_one_process(run, device, data):
     state = trainer.init_train_state(
         run, torch.Generator(device=device).manual_seed(MESH_SEED),
         device=device)
-    before = [m.detach().clone() for m in tree_leaves(state.master)]
+    before = [m.detach().clone() for m in tree_leaves(_masters(state))]
     step = trainer.make_train_step(run, total_steps=MESH_STEPS)
     losses, norms = [], []
     for _ in range(MESH_STEPS):
         state, m = step(state, data)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    return losses, norms, [m.detach() for m in tree_leaves(state.master)], \
-        before
+    return losses, norms, [m.detach() for m in
+                           tree_leaves(_masters(state))], before
+
+
+def _masters(state):
+    """The float32 copy an update is read on: the master weights, or the
+    parameters where they are float32 themselves."""
+    return state.master if state.master is not None else state.params
 
 
 def _steps_on_mesh(run, device, data, mesh):
     """``MESH_STEPS`` steps of ``run`` with the state and batch placed on
     ``mesh`` by the train rules, the kernel counts set to 0 just before
-    and read just after.  Returns (record, the masters gathered whole)."""
+    and read just after.  Returns (record, the masters gathered whole on
+    the host of rank 0, None on the other ranks)."""
+    import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.distributed import collectives
@@ -3602,8 +3636,12 @@ def _steps_on_mesh(run, device, data, mesh):
                 _p11_sync(device)
                 step_s.append(time.perf_counter() - t0)
         launches = _mesh_counts()
-        masters = [collectives.whole(m).detach() for m in
-                   tree_leaves(state.master)]
+        masters = []
+        for m in tree_leaves(_masters(state)):      # a leaf at a time
+            w = collectives.whole(m).detach()
+            masters.append(w.cpu() if dist.get_rank() == 0 else None)
+            del w
+        masters = masters if dist.get_rank() == 0 else None
         on_card = all(x.to_local().device == device
                       for x in tree_leaves(state.params))
     rec = {"losses": losses, "grad_norms": norms, "step_s": step_s,
@@ -3619,8 +3657,8 @@ def _steps_on_mesh(run, device, data, mesh):
 
 def _update_gap(got, want, before) -> float:
     """L2 of the two runs' masters' difference over L2 of the single
-    process's move."""
-    num = sum(float(torch.sum((a.double() - b.double()) ** 2))
+    process's move (``got`` may lie on the host)."""
+    num = sum(float(torch.sum((a.to(b.device).double() - b.double()) ** 2))
               for a, b in zip(got, want))
     den = sum(float(torch.sum((b.double() - c.double()) ** 2))
               for b, c in zip(want, before))
@@ -3760,7 +3798,7 @@ def phase13_nccl_rank(mesh, p):
     losses, norms, want, before = _steps_one_process(run, device, data)
     rec["bitwise"] = bool(losses == rec["losses"] and norms ==
                           rec["grad_norms"] and all(
-                              torch.equal(a, b) for a, b in
+                              torch.equal(a.to(b.device), b) for a, b in
                               zip(masters, want)))
     rec["update_gap"] = _update_gap(masters, want, before)
     return rec
@@ -3770,11 +3808,13 @@ def _rel(a, b) -> float:
     return abs(a / b - 1)
 
 
-def train_gaps(head, split, run) -> tuple:
+def train_gaps(head, split, run, gates=None) -> tuple:
     """A mesh run's record ``head`` against its witness ``split``: the
     losses', grad norms' and masters' gaps beside ``run``'s compute
-    dtype's ``MESH_GATES``, and the gates they fail."""
-    rtol, norm_lim, update_lim = MESH_GATES[run.train.compute_dtype]
+    dtype's ``MESH_GATES`` (or ``gates``: (loss rtol, norm gap, update
+    gap)), and the gates they fail."""
+    rtol, norm_lim, update_lim = (gates or MESH_GATES)[
+        run.train.compute_dtype][:3]
     got, want = head["losses"], split["losses"]
     loss_limit = [rtol] * 2 + [rtol + update_lim * abs(want[1] - want[2])
                                / abs(want[2])]
@@ -3800,8 +3840,9 @@ def train_gaps(head, split, run) -> tuple:
 
 
 def phase_mesh_train(device):
-    """Phase 13: training under a mesh.  (a) SmolLM-360M at full width and
-    depth, bf16 with a float32 master copy, AdamW, 3 steps on phase 12's
+    """Phase 13: training under a mesh.  (a) SmolLM-360M at full width, 16
+    of 32 layers, bf16 with a float32 master copy, AdamW, 3 steps on phase
+    12's
     batch (2 x 4096 tokens) on a ("data", "model") = (2, 2) mesh of 4
     gloo ranks sharing the card, with the train rules (SmolLM's 15 heads
     and 5 KV heads replicate on "model", its ff and vocab dims shard);
@@ -3893,22 +3934,73 @@ def phase_mesh_train(device):
 
 
 # ------------------------------ phase 14: tensor parallelism on "model"
-# (a) Qwen3-4B at full width, 4 of its 36 layers, trains 3 steps on a
+# (a) Qwen3-4B at full width, 2 of its 36 layers, trains 3 steps on a
 # ("data", "model") = (2, 2) mesh of 4 gloo ranks: each rank computes its
 # 16 of 32 heads, 4 of 8 KV heads, half the ff and half the vocab; held to
 # one process that splits the batch as the data ranks do at phase 13's
 # gates, in bfloat16 and again computed in float32 (``TP_TRAIN_RUNS``).
-# (b) Qwen3-4B at full width and depth serves on a (1, 4) mesh:
+# (b) Qwen3-4B at full width, 8 of its 36 layers, serves on a (1, 4) mesh:
 # each rank its 8 heads, 2 KV heads, a quarter of ff and vocab, and a
 # quarter of every KV cache's slots (``kv_seq``), which a decode step
 # attends where they lie.  The one-process serve of the same weights runs
 # first; the mesh's decode is fed its tokens, so each step's logits meet.
-TP_TRAIN = ("qwen3-4b", 4)
+TP_TRAIN = ("qwen3-4b", 2)
 TP_TRAIN_RUNS = [("bf16", {"grad_accum": 1}),
                  ("f32", {"grad_accum": 1, **MESH_F32})]
 TP_SERVE, TP_SERVE_MESH, TP_DECODE_STEPS = "qwen3-4b", (1, 4), 8
+TP_SERVE_LAYERS = 8         # of 36 (all until phase 14 (d)-(f)): time
 TP_SEED = 14
-TP_TIMEOUT_S = 600.0
+TP_TIMEOUT_S = 900.0
+# (d) Qwen2-MoE-A2.7B at full width, 2 of its 24 layers (AdamW state of
+# ~18 B a parameter: 1.83 B parameters, ~33 GB for the one-process witness
+# and as much over the four ranks), trains 3 steps on phase 13's batch on
+# (2, 2), bf16, and again in float32 with float32 parameters (a float32
+# gradient: no bfloat16 accumulation of the Zipf batch's frequent
+# embedding rows, which parts a whole-batch witness from the data
+# ranks' split sums; ``MOE_TP_GATES``): each rank computes its data
+# rank's half of the slots of 32 of the 64 experts (the capacity dim on
+# "data"), half the shared expert's ff and its 8 of 16 heads; the
+# routing is the whole batch's (its statistics, capacity and slots summed
+# over the data ranks), so the witness is one process on the whole batch.
+# (e) Qwen2-MoE serves on (1, 4) (16 experts, 4 heads, a quarter of the
+# shared ff, vocab and cache slots a rank): bf16 at full depth, and
+# computed in float32 at 4 layers (bf16 weights); one process first.
+MOE_TP = "qwen2-moe-a2.7b"
+MOE_TP_LAYERS = 2
+# (d)'s gates by compute dtype: (loss rtol, grad norm gap, update gap,
+# first-step router gradient gap, drop-fraction gap), against one process
+# on the whole batch (the routing must be the whole batch's).  The router
+# has a gate of its own: its aux and z path, the same on every rank, is
+# summed once, and no loss gate sees a fault there (the router is 2^-14 of
+# the parameters).  Float32 (float32 parameters): MESH_GATES; the drops
+# (Zipf rows pile onto few experts: 64-83 % of the choices drop) the same
+# count where the parameters are the same (steps 0-1), within 2^-10 after.
+# bfloat16: the witness accumulates each bf16 gradient over the 8192 rows
+# where each data rank accumulates 4096 (phase 13's reason for a split
+# witness: the Zipf batch's frequent embedding rows stagnate), and the two
+# sides' roundings flip near-tied experts, each flip moving which tokens
+# an expert's capacity cuts off.  Its gates come from readings of
+# ``scripts/torch_tp_gate_readings.py --moe-only`` (NVIDIA H100 80GB HBM3,
+# 700.00 W), sound / planted (a rank's expert partial sum dropped; the
+# router's aux gradient summed 2 times; each data rank routing alone):
+# losses of steps 0-1 5.7e-5 / 5.8e-4, 5.7e-5, 4.3e-4 (the aux fault moves
+# none): 1e-4; the norm 0.0121 (float32 compute with bf16 parameters reads
+# 0.0119: the accumulation, not the compute) / 0.0295, 0.0136, 0.0128:
+# 2^-6; the update 0.057 / 0.596, 0.087, 0.454: 2^-3; the router gradient
+# 0.0099 / 0.502, 0.335, 0.417: 2^-5; the drops 0.0031 / 0.014, 0.036,
+# 0.080: 2^-7.
+MOE_TP_GATES = {"float32": (*MESH_GATES["float32"], 2.0 ** -7,
+                            2.0 ** -10),
+                "bfloat16": (TP_BF16_LOSS_RTOL, 2.0 ** -6, 2.0 ** -3,
+                             2.0 ** -5, 2.0 ** -7)}
+# (label, layers, TrainConfig overrides): the float32 run keeps one layer
+# (float32 parameters move twice the bytes through the host-staged
+# collectives; the script's time)
+MOE_TP_TRAIN_RUNS = [("bf16", MOE_TP_LAYERS, {"grad_accum": 1}),
+                     ("f32", 1, {"grad_accum": 1, "param_dtype": "float32",
+                                 **MESH_F32})]
+MOE_TP_SERVE = [("bf16", None, torch.bfloat16), ("f32", 4, torch.float32)]
+MOE_TP_SEED = 15
 # The mesh's logits against one process's, relative L2 a step: both are
 # bfloat16 computations of the same logits that round at different places
 # (a rank's column shard of a product can take another cuBLAS kernel, so
@@ -3924,44 +4016,78 @@ TP_TIMEOUT_S = 600.0
 # between the two tokens at most twice the largest logit difference of
 # its row.
 TP_LOGIT_REL_L2 = 0.025
+# Phase 14 (e)'s bfloat16 Qwen2-MoE serve at full depth against one
+# process, relative L2 a step: routing is discontinuous, so a near-tied
+# expert that flips moves a row's logits further than phase 14 (b)'s dense
+# drift.  Read as that limit: the sound run at most 0.145 a step, one
+# rank's expert partial sum of the first MoE layer dropped
+# (``moe_partial_dropped``) at least 0.256 (``scripts/
+# torch_tp_gate_readings.py --moe-only``, NVIDIA H100 80GB HBM3, 700.00 W).
+MOE_SERVE_BF16_REL_L2 = 0.2
 
 
-def _tp_serve_params(run, device, mesh, rules):
-    """Qwen3-4B's seeded bfloat16 weights in the JAX layout, each leaf
-    drawn whole (the one-process draws, in the same order) and cut at once
-    to this rank's shard: no rank holds the whole model."""
+def _tp_serve_params(run, device, mesh, rules, seed=TP_SEED):
+    """The served model's seeded bfloat16 weights in the JAX layout, each
+    leaf drawn whole (the one-process draws, in the same order) and cut
+    at once to this rank's shard: no rank holds the whole model.  The
+    ranks draw each leaf in turn (a full-depth MoE's stacked expert leaf
+    is 8.9 GB), each giving its whole copy back to the card before the
+    next draws."""
+    import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.distributed import context as dctx
+    from repro_torch.launch.shardings import own_storage
     from repro_torch.models import backbone, common
 
-    gen = torch.Generator(device=device).manual_seed(TP_SEED)
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     def one(spec):
-        x = common.init_param(spec, gen, torch.bfloat16, device)
-        return distribute_tensor(x, mesh, dctx.placements_for(
-            mesh, x.shape, spec.logical_axes(), rules), src_data_rank=None)
+        out = None
+        for turn in range(dist.get_world_size()):
+            if turn == dist.get_rank():
+                x = common.init_param(spec, gen, torch.bfloat16, device)
+                out = own_storage(distribute_tensor(
+                    x, mesh, dctx.placements_for(
+                        mesh, x.shape, spec.logical_axes(), rules),
+                    src_data_rank=None))
+                del x
+                _free(device)
+            dist.barrier()
+        return out
     return common.map_specs(one, backbone.train_specs(run.model))
 
 
-def tp_serve_reference(device):
-    """(b)'s one-process serve: the same seeded weights whole on the card,
-    a 2 x 4096 prefill and 8 greedy steps; the logits of each step (on the
-    host), the tokens fed, the seconds.  The weights are freed after."""
+def serve_run(arch, layers=None):
+    """``arch``'s config, cut to ``layers`` (None: all)."""
+    import dataclasses as dc
+
     from repro_torch.configs.base import load_config
+    run = load_config(arch)
+    if layers is not None:
+        run = dc.replace(run, model=dc.replace(run.model, num_layers=layers))
+    return run
+
+
+def tp_serve_reference(device, arch=TP_SERVE, layers=None,
+                       dtype=torch.bfloat16, seed=TP_SEED):
+    """(b)'s (and (e)'s) one-process serve: the same seeded weights whole
+    on the card, a 2 x 4096 prefill and 8 greedy steps computed in
+    ``dtype``; the logits of each step (on the host), the tokens fed, the
+    seconds.  The weights are freed after."""
     from repro_torch.models import backbone, common
 
-    run = load_config(TP_SERVE)
-    gen = torch.Generator(device=device).manual_seed(TP_SEED)
+    run = serve_run(arch, layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
     params = backbone.serving_params(common.map_specs(
         lambda s: common.init_param(s, gen, torch.bfloat16, device),
         backbone.train_specs(run.model)), run.model)
-    prompts = torch.from_numpy(np.random.default_rng(TP_SEED).integers(
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
         0, run.model.vocab_size, (SERVE_BATCH, PROMPT))).to(device)
     with torch.inference_mode():
-        drive_request(run, params, prompts, 1)         # warm-up request
+        drive_request(run, params, prompts, 1, dtype)   # warm-up request
         logits, fed, _, pre_s, dec_s, launches = drive_request(
-            run, params, prompts, TP_DECODE_STEPS)
+            run, params, prompts, TP_DECODE_STEPS, dtype)
     out = {"logits": [x.float().cpu() for x in logits],
            "fed": [t.cpu() for t in fed], "prompts": prompts.cpu(),
            "prefill_s": pre_s, "decode_s": dec_s, "launches": launches}
@@ -4100,13 +4226,14 @@ def tp_train(device, overrides) -> dict:
     return rec
 
 
-def tp_serve(device, p) -> dict:
-    """(b) on a rank: Qwen3-4B's prefill and decode on the (1, 4) mesh,
-    fed the one-process serve's tokens (``p``); each step's logits on rank
-    0, every decode step's collective bytes."""
+def tp_serve(device, p, arch=TP_SERVE, layers=None, dtype=torch.bfloat16,
+             seed=TP_SEED) -> dict:
+    """(b) (and (e)) on a rank: the model's prefill and decode on the (1,
+    4) mesh, computed in ``dtype``, fed the one-process serve's tokens
+    (``p``); each step's logits on rank 0, every decode step's collective
+    bytes."""
     import torch.distributed as dist
 
-    from repro_torch.configs.base import load_config
     from repro_torch.distributed import collectives
     from repro_torch.distributed import context as dctx
     from repro_torch.distributed import sharding
@@ -4114,18 +4241,18 @@ def tp_serve(device, p) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving.engine import make_serve_step
 
-    run = load_config(TP_SERVE)
+    run = serve_run(arch, layers)
     m14 = make_mesh(TP_SERVE_MESH, ("data", "model"),
                     device_type=device.type)
     rules = sharding.make_rules(fsdp=False)
     with dctx.mesh_context(m14, rules), torch.inference_mode():
-        params = _tp_serve_params(run, device, m14, rules)
+        params = _tp_serve_params(run, device, m14, rules, seed)
         _p11_sync(device)
         prompts = p["prompts"].to(device)
         fed = [t.to(device) for t in p["fed"]]
-        prefill = make_serve_step(run, "prefill",
+        prefill = make_serve_step(run, "prefill", compute_dtype=dtype,
                                   max_len=PROMPT + TP_DECODE_STEPS)
-        decode = make_serve_step(run, "decode")
+        decode = make_serve_step(run, "decode", compute_dtype=dtype)
         _reset_mesh_counts()
         t0 = time.perf_counter()
         logits, state = prefill(params, prompts)
@@ -4157,20 +4284,187 @@ def tp_serve(device, p) -> dict:
     return out
 
 
+def _peak_gb(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 1e9 \
+        if device.type == "cuda" else 0.0
+
+
+def _free(device):
+    """This process's cached card memory back to the card (the ranks share
+    it)."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def moe_drop_calls():
+    """Each ``ffn.moe`` call's drop fraction in the block, in order (under
+    remat a pattern layer's forward, then its recompute in the
+    backward)."""
+    from repro_torch.models import ffn
+
+    calls, inner = [], ffn.moe
+
+    def recorded(*a, **k):
+        y, m = inner(*a, **k)
+        calls.append(float(m["moe_drop_frac"]))
+        return y, m
+    ffn.moe = recorded
+    try:
+        yield calls
+    finally:
+        ffn.moe = inner
+
+
+@contextlib.contextmanager
+def first_router_grads(run):
+    """The first step's router gradients in the block (each pattern
+    group's stacked router leaf, whole, float32, on the host), as the
+    step takes them from the parameters."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models import backbone, common
+    from repro_torch.train import trainer
+
+    axes = [s.logical_axes() for s in
+            common.tree_leaves_specs(backbone.train_specs(run.model))]
+    idx = [i for i, a in enumerate(axes)
+           if a == ("layers", "embed", "experts")]
+    got, inner = [], trainer._take_grads
+
+    def spy(leaves, acc_dtype):
+        if not got:
+            for i in idx:
+                g = leaves[i].grad
+                g = collectives.whole(g) if isinstance(g, DTensor) else g
+                # a copy: the clip scales the gradients in place
+                got.append(g.detach().to("cpu", torch.float32, copy=True))
+        return inner(leaves, acc_dtype)
+    trainer._take_grads = spy
+    try:
+        yield got
+    finally:
+        trainer._take_grads = inner
+
+
+def moe_tp_train(device, layers, overrides) -> dict:
+    """(d) on a rank: Qwen2-MoE's steps (``layers`` of them) on the (2, 2)
+    mesh with ``overrides`` (``MOE_TP_TRAIN_RUNS``), each MoE call's drop
+    fraction and
+    the peak memory; rank 0 adds the witness's (one process on the whole
+    batch: "whole")."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import synthetic_batch
+
+    run = mesh_run(MOE_TP, layers, overrides)
+    m22 = make_mesh(MESH_SHAPE, ("data", "model"), device_type=device.type)
+    data = synthetic_batch(run.model, np.random.default_rng(MESH_SEED),
+                           TRAIN_BATCH, TRAIN_SEQ, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with moe_drop_calls() as drops, first_router_grads(run) as router:
+        rec, masters = _steps_on_mesh(run, device, data, m22)
+    rec["drops"], rec["peak_gb"] = drops, _peak_gb(device)
+    _free(device)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with moe_drop_calls() as whole_drops, \
+                first_router_grads(run) as whole_router:
+            losses, norms, want, before = _steps_one_process(run, device,
+                                                             data)
+        rec["whole"] = {"losses": losses, "grad_norms": norms,
+                        "update_gap": _update_gap(masters, want, before),
+                        "drops": whole_drops, "peak_gb": _peak_gb(device),
+                        "router_grad_gap": max(normwise(a, b) for a, b in
+                                               zip(router, whole_router))}
+        del want, before
+    del masters, data
+    _free(device)
+    dist.barrier()
+    return rec
+
+
+def moe_layer_bitwise(device) -> dict:
+    """(e) on a rank: one full-width Qwen2-MoE layer without its shared
+    expert, bf16, tokens [2, 4096, 2048], on the (1, 4) mesh (the rank's
+    16 experts, their partial sums added in float32 and rounded once)
+    against the whole layer in this process: how many outputs are not
+    bit for bit one process's."""
+    from repro_torch.configs.base import load_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ffn
+
+    cfg = load_config(MOE_TP).model
+    tree, x = ep_layer(cfg, device, MOE_TP_SEED)
+    tree = {k: v for k, v in tree.items() if k not in ("shared",
+                                                       "shared_gate")}
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    m14 = make_mesh(TP_SERVE_MESH, ("data", "model"),
+                    device_type=device.type)
+    with torch.inference_mode():
+        want, _ = ffn.moe(tree, x, **kw)
+        with dctx.tp_context(m14, sharding.make_rules(fsdp=False)):
+            sl = dctx.local_slice("experts", cfg.num_experts_padded)
+            local = {k: v[:, sl] if k == "router" else v[sl]
+                     for k, v in tree.items()}
+            got, _ = ffn.moe(local, x, sizes=ffn.MoESizes(
+                cfg.num_experts_padded, cfg.moe_d_ff), **kw)
+        rows = (got != want).any(-1)
+        out = {"outputs": want.numel(),
+               "not_bitwise": int((got != want).sum()),
+               "rows_not_bitwise": int(rows.sum()), "rows": rows.numel(),
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "finite": bool(torch.isfinite(got).all())}
+    del tree, x, want, got
+    _free(device)
+    return out
+
+
 def phase14_rank(mesh, p):
-    """(a), (b), (c) on each of 4 gloo ranks sharing the card."""
+    """(a)-(f) on each of 4 gloo ranks sharing the card."""
     import torch.distributed as dist
 
     device = torch.device(p["device"])
+    clock = [time.time()]
+    part_s = {}
+
+    def lap(name):
+        part_s[name] = time.time() - clock[0]
+        clock[0] = time.time()
     out = {"train": {label: tp_train(device, overrides)
-                     for label, overrides in TP_TRAIN_RUNS},
-           "serve": tp_serve(device, p)}
+                     for label, overrides in TP_TRAIN_RUNS}}
+    lap("a")
+    out["serve"] = tp_serve(device, p, TP_SERVE, TP_SERVE_LAYERS)
+    _free(device)
+    lap("b")
+    out["moe_train"] = {label: moe_tp_train(device, layers, overrides)
+                        for label, layers, overrides in MOE_TP_TRAIN_RUNS}
+    lap("d")
+    out["moe_serve"] = {}
+    for label, layers, dtype in MOE_TP_SERVE:
+        out["moe_serve"][label] = tp_serve(device, p["moe_serve"][label],
+                                           MOE_TP, layers, dtype,
+                                           MOE_TP_SEED)
+        _free(device)
+        lap(f"e_{label}")
+    out["moe_bitwise"] = moe_layer_bitwise(device)
+    lap("e_bitwise")
     # (c) the kernels at this rank's local shapes, then timed on rank 0
     out["kernels"] = _tp_kernels(device, p["kernel_shapes"])
     dist.barrier()
     if dist.get_rank() == 0 and device.type == "cuda":
         out["kernel_times"] = _tp_kernel_times(device, p["kernel_shapes"])
     dist.barrier()
+    lap("c_f")
+    out["part_s"] = part_s
     return out
 
 
@@ -4187,6 +4481,31 @@ def _tp_decode_budget(cfg, B) -> int:
     from repro_torch.models import backbone
     return cfg.num_layers * layer + B * d * 4 + \
         B * backbone.padded_vocab(cfg) * 4
+
+
+def _moe_decode_budget(cfg, B) -> tuple:
+    """(e)'s decode budget: ``_tp_decode_budget`` and one float32
+    all-reduce of the step's rows [B, 1, D] a MoE layer (the experts' and
+    the shared expert's partial sums), and the bytes a rank received a
+    step before, when every MoE layer's parameters were gathered whole
+    over the 4 ranks (bfloat16, (M - 1) / M of the block)."""
+    from repro_torch.models import backbone, common, ffn
+
+    n_moe = backbone.layer_plan(cfg).kinds.count("moe")
+    M = TP_SERVE_MESH[1]
+    block = common.count_params(ffn.moe_specs(
+        cfg.d_model, cfg.moe_d_ff, cfg.num_experts_padded,
+        cfg.num_shared_experts))
+    return (_tp_decode_budget(cfg, B) + n_moe * B * cfg.d_model * 4,
+            n_moe * block * 2 * (M - 1) // M)
+
+
+def _drop_gap(mesh, whole) -> float:
+    """The largest difference of a MoE call's drop fraction on the mesh
+    and in one process (every call's; inf where the calls differ)."""
+    if len(mesh) != len(whole):
+        return float("inf")
+    return max((abs(a - b) for a, b in zip(mesh, whole)), default=0.0)
 
 
 def logit_gaps(got, want, V) -> tuple:
@@ -4219,20 +4538,24 @@ def logit_gaps(got, want, V) -> tuple:
 
 def phase_tp(device):
     """Phase 14: tensor parallelism over the mesh's "model" axis, 4 gloo
-    ranks sharing the card.  (a) Qwen3-4B at full width, 4 of 36 layers,
+    ranks sharing the card.  (a) Qwen3-4B at full width, 2 of 36 layers,
     3 AdamW steps (bf16 parameters, float32 masters; computed in bf16 and
     again in float32: ``TP_TRAIN_RUNS``) on phase 13's batch on (2, 2):
     the launches the plan's on every rank, argument bytes the placements',
     the ranks' losses equal, and against one process that splits the batch
     as the data ranks do the losses, grad norms and masters' update within
-    phase 13's gates (``MESH_GATES`` of the run's compute dtype).  (b) Qwen3-4B at full width and depth on (1, 4): a
-    2 x 4096 prefill (36 attention launches a rank, on its 8 heads) and 8
+    phase 13's gates (``MESH_GATES`` of the run's compute dtype).  (b)
+    Qwen3-4B at full width, 8 of 36 layers, on (1, 4): a 2 x 4096 prefill
+    (8 attention launches a rank, on its 8 heads) and 8
     decode steps over caches split by ``kv_seq``, fed one process's tokens:
     each step's logits within ``TP_LOGIT_REL_L2`` of one process's, a
     differing greedy token a near tie, every decode step's collective
     bytes the same and within ``_tp_decode_budget`` (no slot moves), the
     caches on the card.  (c) each rank's kernel calls at its local shapes
-    against their plain versions."""
+    against their plain versions.  (d)-(f) the MoE on "model" (the module
+    docstring): Qwen2-MoE trained against one process on the whole batch
+    at ``MOE_TP_GATES``, served against one process, its attention
+    kernels at their local shapes."""
     from repro_torch.configs.base import load_config
     from repro_torch.distributed.spawn import run_ranks
 
@@ -4245,25 +4568,35 @@ def phase_tp(device):
         if not ok:
             fails.append(what)
     t0 = time.time()
-    ref = tp_serve_reference(device)
+    ref = tp_serve_reference(device, TP_SERVE, TP_SERVE_LAYERS)
+    moe_ref = {label: tp_serve_reference(device, MOE_TP, layers, dtype,
+                                         MOE_TP_SEED)
+               for label, layers, dtype in MOE_TP_SERVE}
     ref_s = time.time() - t0
-    cfg = load_config(TP_SERVE).model
+    cfg = serve_run(TP_SERVE, TP_SERVE_LAYERS).model
+    mcfg = load_config(MOE_TP).model
+
+    def local(c, B, M, S):
+        return (B, c.num_heads // M, c.num_kv_heads // M, S, c.head_dim)
     shapes = {"attention": {
-        **{name: (TRAIN_BATCH // MESH_SHAPE[0], cfg.num_heads // 2,
-                  cfg.num_kv_heads // 2, TRAIN_SEQ, cfg.head_dim)
-           for name in ("train", "train_f32")},
-        "prefill": (SERVE_BATCH, cfg.num_heads // TP_SERVE_MESH[1],
-                    cfg.num_kv_heads // TP_SERVE_MESH[1], PROMPT,
-                    cfg.head_dim)},
+        **{name: local(cfg, TRAIN_BATCH // MESH_SHAPE[0], MESH_SHAPE[1],
+                       TRAIN_SEQ) for name in ("train", "train_f32")},
+        "prefill": local(cfg, SERVE_BATCH, TP_SERVE_MESH[1], PROMPT),
+        **{name: local(mcfg, TRAIN_BATCH // MESH_SHAPE[0], MESH_SHAPE[1],
+                       TRAIN_SEQ) for name in ("train_moe", "train_moe_f32")},
+        "prefill_moe": local(mcfg, SERVE_BATCH, TP_SERVE_MESH[1], PROMPT)},
         "scan": (TRAIN_SEQ, TRAIN_BATCH // MESH_SHAPE[0] * 2560
                  // MESH_SHAPE[1])}
     t0 = time.time()
     ranks = run_ranks(phase14_rank, 4, {
         "device": dev, "prompts": ref["prompts"], "fed": ref["fed"],
+        "moe_serve": {k: {"prompts": v["prompts"], "fed": v["fed"]}
+                      for k, v in moe_ref.items()},
         "kernel_shapes": shapes}, backend="gloo", device=dev,
         timeout_s=TP_TIMEOUT_S)
     ranks_s = time.time() - t0
-    out = {"card": card, "reference_s": ref_s, "ranks_s": ranks_s}
+    out = {"card": card, "reference_s": ref_s, "ranks_s": ranks_s,
+           "part_s_rank0": ranks[0]["part_s"]}
 
     # (a)
     out["train"], train_launches = {}, {}
@@ -4310,6 +4643,7 @@ def phase_tp(device):
                                  cfg.vocab_size)
     for f in bad:
         gate(False, f"(14 b) {f}")
+    serve_prefill = srv[0]["prefill_launches"]
     out["serve"] = {"arch": TP_SERVE, "mesh": list(TP_SERVE_MESH),
                     "prompt": [SERVE_BATCH, PROMPT],
                     "steps": TP_DECODE_STEPS, "rel_l2_by_step": rel,
@@ -4324,7 +4658,114 @@ def phase_tp(device):
                     "one_process": {k: ref[k] for k in
                                     ("prefill_s", "decode_s", "launches")}}
 
-    # (c)
+    # (d)
+    out["moe_train"] = {}
+    for label, layers, overrides in MOE_TP_TRAIN_RUNS:
+        recs = [r["moe_train"][label] for r in ranks]
+        head = recs[0]
+        run = mesh_run(MOE_TP, layers, overrides)
+        for i, r in enumerate(recs):
+            gate(r["launches"] == r["plan"], f"(14 d {label}) rank {i}: "
+                 f"launches {r['launches']}, plan {r['plan']}")
+            gate(r["argument_bytes"] == r["placement_bytes"],
+                 f"(14 d {label}) rank {i}: argument bytes != placements'")
+            gate(r["on_card"], f"(14 d {label}) rank {i}: state off the "
+                 f"card")
+            gate(r["losses"] == head["losses"] and r["drops"] ==
+                 head["drops"], f"(14 d {label}): ranks disagree on the "
+                 f"loss or the drops")
+        gaps, bad = train_gaps(head, head["whole"], run, MOE_TP_GATES)
+        for f in bad:
+            gate(False, f"(14 d {label}): {f}")
+        *_, rlim, dlim = MOE_TP_GATES[run.train.compute_dtype]
+        drop_gap = _drop_gap(head["drops"], head["whole"]["drops"])
+        gate(drop_gap <= dlim + 0.5 / (TRAIN_BATCH * TRAIN_SEQ
+                                       * run.model.top_k),
+             f"(14 d {label}): drop fractions {head['drops']} vs one "
+             f"process {head['whole']['drops']} (limit {dlim})")
+        gate(head["whole"]["router_grad_gap"] <= rlim, f"(14 d {label}): "
+             f"router gradient gap {head['whole']['router_grad_gap']} "
+             f"(limit {rlim})")
+        train_launches[f"moe_train_{label}"] = head["launches"]
+        out["moe_train"][label] = {
+            "arch": MOE_TP, "layers": layers, **overrides,
+            "reduced": {"num_layers": [mcfg.num_layers, layers]},
+            "mesh": list(MESH_SHAPE), "witness": "one process, whole batch",
+            **gaps, "router_grad_gap": head["whole"]["router_grad_gap"],
+            "router_grad_limit": rlim, "drop_gap": drop_gap,
+            "drop_gap_limit": dlim, "drops_mesh": head["drops"],
+            "drops_one_process": head["whole"]["drops"],
+            "peak_gb_by_rank": [r["peak_gb"] for r in recs],
+            "peak_gb_one_process": head["whole"]["peak_gb"],
+            "by_rank_step_s": [r["step_s"] for r in recs],
+            "by_rank_argument_bytes": [r["argument_bytes"] for r in recs],
+            **{k: head[k] for k in ("losses", "grad_norms", "whole",
+                                    "launches", "plan", "placement_bytes",
+                                    "collectives")}}
+
+    # (e)
+    out["moe_serve"] = {}
+    moe_launches = {}
+    for label, layers, dtype in MOE_TP_SERVE:
+        srv = [r["moe_serve"][label] for r in ranks]
+        rcfg = serve_run(MOE_TP, layers).model
+        n_attn = kernel_launches(rcfg)["flash_attention"]
+        budget, whole_gather = _moe_decode_budget(rcfg, SERVE_BATCH)
+        for i, r in enumerate(srv):
+            gate(r["prefill_launches"] == n_attn, f"(14 e {label}) rank "
+                 f"{i}: {r['prefill_launches']} attention launches a "
+                 f"prefill, not {n_attn}")
+            gate(r["cache_on_card"], f"(14 e {label}) rank {i}: a cache "
+                 f"left the card")
+            per_step = [sum(b.values()) for b in r["decode_bytes"]]
+            gate(len(set(per_step)) == 1, f"(14 e {label}) rank {i}: "
+                 f"decode step bytes {per_step} vary")
+            if dtype == torch.bfloat16:
+                gate(per_step[0] <= budget, f"(14 e {label}) rank {i}: "
+                     f"decode step bytes {per_step[0]}, budget {budget}")
+        rel, flips, bad = logit_gaps(srv[0]["logits"],
+                                     moe_ref[label]["logits"],
+                                     rcfg.vocab_size)
+        # bfloat16: routing is discontinuous and the two sides round at
+        # other places, so near-tied experts flip: the drift is held at
+        # its read limit, each differing greedy token a near tie; float32
+        # within phase 11's float32 bound
+        limit = MOE_SERVE_BF16_REL_L2 if dtype == torch.bfloat16 \
+            else F32_REL_L2
+        for f in bad:
+            if "relative L2" not in f:
+                gate(False, f"(14 e {label}) {f}")
+        gate(max(rel) <= limit, f"(14 e {label}) logits vs one process: "
+             f"relative L2 {rel} (limit {limit})")
+        moe_launches[f"moe_serve_prefill_{label}"] = {
+            "flash_attention": srv[0]["prefill_launches"]}
+        out["moe_serve"][label] = {
+            "arch": MOE_TP, "layers": rcfg.num_layers,
+            "dtype": str(dtype).split(".")[-1], "weights": "bfloat16",
+            "mesh": list(TP_SERVE_MESH), "prompt": [SERVE_BATCH, PROMPT],
+            "steps": TP_DECODE_STEPS, "rel_l2_by_step": rel,
+            "rel_l2_limit": limit, "flips": flips,
+            "decode_bytes_budget": budget if dtype == torch.bfloat16
+            else None,
+            "decode_bytes_per_step_by_rank": [
+                sum(r["decode_bytes"][0].values()) for r in srv],
+            "decode_bytes_by_kind_rank0": srv[0]["decode_bytes"][0],
+            "whole_block_gather_bytes_before": whole_gather,
+            "cache_slice": srv[0]["cache_slice"],
+            "prefill_s_by_rank": [r["prefill_s"] for r in srv],
+            "decode_step_s_rank0": srv[0]["decode_step_s"],
+            "one_process": {k: moe_ref[label][k] for k in
+                            ("prefill_s", "decode_s", "launches")}}
+        if layers is not None:
+            out["moe_serve"][label]["reduced"] = {
+                "num_layers": [mcfg.num_layers, layers]}
+    bw = [r["moe_bitwise"] for r in ranks]
+    for i, r in enumerate(bw):
+        gate(r["finite"], f"(14 e) rank {i}: the split MoE layer's output "
+             f"is not finite")
+    out["moe_serve"]["experts_combine_bitwise_by_rank"] = bw
+
+    # (c), (f)
     kern = [r["kernels"] for r in ranks]
     for i, k in enumerate(kern):
         for name, rec in k.items():
@@ -4342,8 +4783,8 @@ def phase_tp(device):
     out["failed"] = fails
     emit(tensor_parallel=out)
     check(not fails, "; ".join(fails))
-    return {**train_launches,
-            "serve_prefill": {"flash_attention": srv[0]["prefill_launches"]}}
+    return {**train_launches, **moe_launches,
+            "serve_prefill": {"flash_attention": serve_prefill}}
 
 
 def main() -> int:

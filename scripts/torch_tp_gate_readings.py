@@ -1,6 +1,7 @@
 """Readings behind ``chip_smoke.py``'s bfloat16 tensor-parallel gates.
 
     python3 scripts/torch_tp_gate_readings.py             # on one H100
+    python3 scripts/torch_tp_gate_readings.py --moe-only  # (d), (e) only
     python3 scripts/torch_tp_gate_readings.py --cpu-smoke  # a dry run
 
 On 4 gloo ranks sharing the card, as phases 13 and 14 run, it prints one
@@ -21,9 +22,24 @@ JSON object with the card's name and power limit and:
     rank's own share, its all-reduce skipped on every rank;
   - ``slots_dropped`` (decode): one layer's split softmax
     (``collectives.combine_softmax``'s ``COMBINE_K``-th call a step)
-    leaving out the last rank's cache slots.
+    leaving out the last rank's cache slots;
+
+  and for the MoE on "model" (phase 14 (d)'s bfloat16 Qwen2-MoE run
+  against its one-process witness, with its drops, and (e)'s serves):
+
+  - ``moe_partial_dropped``: the first MoE layer's partial output of
+    model rank 1 (``ffn.combine_partial``, its forward and its
+    recompute) zeroed before the ranks sum it;
+  - ``moe_aux_grad_summed`` (training): the router's aux and z losses,
+    the same on every rank, passed through Megatron's f, so that their
+    gradient is summed over the model ranks (M times the single
+    program's);
+  - ``moe_routing_local`` (training): the ranks that split the batch
+    hidden from the MoE (``context.data_groups`` empty), so each data
+    rank routes its rows alone: its statistics, capacity and slots.
 
 The gates sit between the largest sound gap and the smallest planted one.
+``--moe-only`` reads the MoE runs alone.
 ``--cpu-smoke`` runs the same code on the CPU at the smoke configs and a
 short sequence, to check the script and not the numbers.
 """
@@ -42,10 +58,13 @@ ROW_K, COL_K, COMBINE_K = 3, 12, 17
 SERVE_ROW_K = 35
 TRAIN_FAULTS = (None, "row_partial_dropped", "col_grad_unsummed")
 SERVE_FAULTS = (None, "row_partial_dropped", "slots_dropped")
+MOE_TRAIN_FAULTS = (None, "moe_partial_dropped", "moe_aux_grad_summed",
+                    "moe_routing_local")
+MOE_SERVE_FAULTS = (None, "moe_partial_dropped")
 TIMEOUT_S = 1200.0
 
-_FAULT = {"name": None, "row_k": ROW_K}
-_COUNT = {"row_out": 0, "col_bwd": 0, "combine": 0}
+_FAULT = {"name": None, "row_k": ROW_K, "moe_calls": (0,)}
+_COUNT = {"row_out": 0, "col_bwd": 0, "combine": 0, "moe_partial": 0}
 _MESH_COUNT = {}        # the counts of the last step under a model group
 
 
@@ -63,7 +82,7 @@ def _install(p):
 
     from repro_torch.distributed import collectives
     from repro_torch.distributed import context as dctx
-    from repro_torch.models import common
+    from repro_torch.models import common, ffn
     from repro_torch.serving import engine
     from repro_torch.train import trainer
 
@@ -112,6 +131,37 @@ def _install(p):
         return combine(o, lse, group)
     collectives.combine_softmax = combine_softmax
 
+    combine_partial = ffn.combine_partial
+
+    def moe_partial(*a, **k):
+        n = _COUNT["moe_partial"]
+        _COUNT["moe_partial"] += 1
+        out = combine_partial(*a, **k)
+        if _FAULT["name"] == "moe_partial_dropped" \
+                and n in _FAULT["moe_calls"] and model_rank() == 1:
+            out = out * 0
+        return out
+    ffn.combine_partial = moe_partial
+
+    def summed_losses(route):
+        def wrapped(*a, **k):
+            out = route(*a, **k)
+            g = dctx.model_group()
+            if _FAULT["name"] != "moe_aux_grad_summed" or g is None:
+                return out
+            aux, z = (collectives.copy_to_model(t, g) for t in out[2:4])
+            return out[:2] + (aux, z) + out[4:]
+        return wrapped
+    ffn.route_over = summed_losses(ffn.route_over)
+
+    data_groups = dctx.data_groups
+
+    def groups():
+        if _FAULT["name"] == "moe_routing_local":
+            return []
+        return data_groups()
+    dctx.data_groups = groups
+
     def counted(make):
         def make_step(*a, **k):
             step = make(*a, **k)
@@ -138,6 +188,8 @@ def _smoke_sizes():
     C.SHARDED_ATTN, C.SHARDED_SCAN = (2, 4, 2, 64, 16), (64, 32)
     C.TP_TRAIN = ("qwen3-4b", 2)
     C.MESH_RUNS = [("smollm", "smollm-360m", None, {})]
+    C.MOE_TP_SERVE = [("bf16", None, torch.bfloat16),
+                      ("f32", 1, torch.float32)]
 
 
 def phase13_rank(mesh, p):
@@ -161,6 +213,85 @@ def train_rank(mesh, p):
         out[str(fault)]["counts"] = dict(_MESH_COUNT)
     _FAULT["name"] = None
     return out
+
+
+def moe_train_rank(mesh, p):
+    """Phase 14 (d)'s bfloat16 run, sound and with each MoE fault (the
+    first MoE layer's forward and, under remat, its recompute: calls 0
+    and 2 L - 1 a step)."""
+    _install(p)
+    device = torch.device(p["device"])
+    layers = C.MOE_TP_LAYERS
+    out = {}
+    for fault in MOE_TRAIN_FAULTS:
+        _FAULT.update(name=fault, moe_calls=(0, 2 * layers - 1))
+        out[str(fault)] = C.moe_tp_train(device, layers, {"grad_accum": 1})
+        out[str(fault)]["counts"] = dict(_MESH_COUNT)
+    _FAULT["name"] = None
+    return out
+
+
+def moe_serve_rank(mesh, p):
+    """Phase 14 (e)'s serves, sound and with the dropped partial sum (the
+    first MoE layer of the prefill and of every decode step)."""
+    _install(p)
+    device = torch.device(p["device"])
+    out = {}
+    for label, layers, dtype in C.MOE_TP_SERVE:
+        for fault in MOE_SERVE_FAULTS:
+            _FAULT.update(name=fault, moe_calls=(0,))
+            rec = C.tp_serve(device, p["moe_serve"][label], C.MOE_TP,
+                             layers, dtype, C.MOE_TP_SEED)
+            out[label, str(fault)] = {"logits": rec["logits"],
+                                      "counts": dict(_MESH_COUNT)}
+            C._free(device)
+    _FAULT["name"] = None
+    return out
+
+
+def moe_readings(p, device, out) -> None:
+    """(d) and (e)'s readings into ``out``."""
+    from repro_torch.configs import base
+    from repro_torch.distributed.spawn import run_ranks
+
+    dev = p["device"]
+    ranks = run_ranks(moe_train_rank, 4, p, backend="gloo", device=dev,
+                      timeout_s=TIMEOUT_S)
+    run = C.mesh_run(C.MOE_TP, C.MOE_TP_LAYERS, {"grad_accum": 1})
+    for fault in MOE_TRAIN_FAULTS:
+        head = ranks[0][str(fault)]
+        gaps = {**C.train_gaps(head, head["whole"], run)[0],
+                "drop_gap": C._drop_gap(head["drops"],
+                                        head["whole"]["drops"]),
+                "router_grad_gap": head["whole"]["router_grad_gap"],
+                "drops": head["drops"],
+                "drops_one_process": head["whole"]["drops"],
+                "counts": head["counts"],
+                "ranks_agree": all(r[str(fault)]["losses"] == head["losses"]
+                                   for r in ranks)}
+        key = ("sound", "moe_train") if fault is None \
+            else ("planted", f"moe_train_{fault}")
+        out[key[0]][key[1]] = gaps
+
+    refs = {label: C.tp_serve_reference(device, C.MOE_TP, layers, dtype,
+                                        C.MOE_TP_SEED)
+            for label, layers, dtype in C.MOE_TP_SERVE}
+    V = base.load_config(C.MOE_TP).model.vocab_size
+    ranks = run_ranks(moe_serve_rank, 4, {**p, "moe_serve": {
+        k: {"prompts": v["prompts"], "fed": v["fed"]}
+        for k, v in refs.items()}}, backend="gloo", device=dev,
+        timeout_s=TIMEOUT_S)
+    for label, _, _ in C.MOE_TP_SERVE:
+        for fault in MOE_SERVE_FAULTS:
+            rec = ranks[0][label, str(fault)]
+            rel, flips, fails = C.logit_gaps(rec["logits"],
+                                             refs[label]["logits"], V)
+            key = ("sound", f"moe_serve_{label}") if fault is None \
+                else ("planted", f"moe_serve_{label}_{fault}")
+            out[key[0]][key[1]] = {
+                "rel_l2_by_step": rel, "max": max(rel), "flips": flips,
+                "not_near_tie": [f for f in fails if "near tie" in f],
+                "counts": rec["counts"]}
 
 
 def serve_rank(mesh, p):
@@ -198,6 +329,10 @@ def main() -> int:
     p = {"device": dev, "cpu_smoke": smoke}
     out = {"card": None if smoke else C.card_name_and_limit(),
            "sound": {}, "planted": {}}
+    moe_readings(p, device, out)
+    if "--moe-only" in sys.argv[1:]:
+        print(json.dumps(out), flush=True)
+        return 0
 
     ranks = run_ranks(phase13_rank, 4, p, backend="gloo", device=dev,
                       timeout_s=TIMEOUT_S)

@@ -319,6 +319,21 @@ def reduce_scatter_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return y.movedim(0, dim).to(x.dtype)
 
 
+def all_to_all_rows(x: torch.Tensor, send: List[int], recv: List[int],
+                    group) -> torch.Tensor:
+    """Rows of ``x`` [sum(send), ...] to the ranks of ``group``: the
+    first ``send[0]`` to group rank 0, the next ``send[1]`` to rank 1 and
+    so on; the result holds ``recv[i]`` rows from rank i, in rank
+    order."""
+    _count("all-to-all", x)
+    stage = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    xs = (x.cpu() if stage else x).contiguous()
+    f = torch.ops._c10d_functional
+    out = f.wait_tensor(f.all_to_all_single(xs, list(recv), list(send),
+                                            group.group_name))
+    return out.to(x.device) if stage else out
+
+
 def _chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n, r = group.size(), dist.get_rank(group)
     m = x.shape[dim] // n
@@ -391,6 +406,25 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_gather_model(g, ctx.group, ctx.dim), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return all_to_all_rows(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_rows(g, ctx.recv, ctx.send, ctx.group), None, \
+            None, None
+
+
+def exchange_rows(x: torch.Tensor, send: List[int], recv: List[int],
+                  group) -> torch.Tensor:
+    """``all_to_all_rows``, differentiable: the gradient goes back by the
+    reverse exchange."""
+    return _Exchange.apply(x, send, recv, group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

@@ -11,24 +11,29 @@ a tuple of names, or None), exactly as the reference's ``PartitionSpec``;
 ``placements_for`` turns those entries into DTensor placements, and
 ``shard`` redistributes a DTensor to them (the counterpart of
 ``with_sharding_constraint``).  Code that spreads its own work reads the
-mesh as well: ``models.moe_ep`` puts its experts on the mesh's ``"model"``
-dim.  The context is per thread, as the reference's.
+mesh as well: ``models.moe_ep`` called under ``mesh_context`` puts its
+experts on the mesh's ``"model"`` dim, every rank passing the whole
+batch.  The context is per thread, as the reference's.
 
 Tensor parallelism has a context of its own (``tp_context``): the train
 and serve steps install it around the model, which then runs on plain
 tensors, each rank on its shard of every product the rules split over
 ``"model"`` (``local_slice`` says which slice of a logical axis is the
-rank's), with the collectives of ``distributed.collectives`` where GSPMD
-would put them.  It is apart from ``mesh_context`` so that the model's
-own ``get_mesh`` readers (``moe_ep``) keep their gathered compute.
-Under the ``seq_parallel`` rules ``shard`` is where the residual stream's
-sequence is scattered over ``"model"`` (``collectives.scatter_model``).
+rank's; a MoE block's experts or their ``ff`` columns too), with the
+collectives of ``distributed.collectives`` where GSPMD would put them.
+Beside it the steps install ``batch_context``: the mesh the step runs
+over and its dims that split the batch's rows, so that what the single
+program computes over the whole batch (the MoE routing's statistics and
+capacity) is summed over the ranks that split it (``data_groups``), and
+``moe_ep`` finds the step's ``"model"`` axis (``step_mesh``).  Under the
+``seq_parallel`` rules ``shard`` is where the residual stream's sequence
+is scattered over ``"model"`` (``collectives.scatter_model``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -40,7 +45,9 @@ __all__ = ["set_mesh", "get_mesh", "get_rules", "mesh_context",
            "tp_context", "tp_state", "model_size", "model_rank",
            "model_group", "split_model_dim", "local_slice", "is_local",
            "seq_parallel",
-           "sequence", "sp_active", "recompute_context"]
+           "sequence", "sp_active", "recompute_context", "batch_context",
+           "BatchSplit", "batch_split", "data_groups", "step_mesh",
+           "CapacitySplit", "capacity_split"]
 
 _STATE = threading.local()
 
@@ -231,21 +238,22 @@ def tp_context(mesh: Optional[DeviceMesh], rules: Optional[dict]):
 
 
 @contextlib.contextmanager
-def _reinstall(st):
-    prev = getattr(_STATE, "tp", None)
-    _STATE.tp = st
+def _reinstall(st, bs):
+    prev = getattr(_STATE, "tp", None), getattr(_STATE, "batch", None)
+    _STATE.tp, _STATE.batch = st, bs
     try:
         yield
     finally:
-        _STATE.tp = prev
+        _STATE.tp, _STATE.batch = prev
 
 
 def recompute_context():
     """``torch.utils.checkpoint``'s ``context_fn``: the recompute in the
     backward (which may run on autograd's device thread) sees the
-    tensor-parallel context that the forward saw."""
+    tensor-parallel and batch contexts that the forward saw."""
     st = getattr(_STATE, "tp", None)
-    return contextlib.nullcontext(), _reinstall(st)
+    bs = getattr(_STATE, "batch", None)
+    return contextlib.nullcontext(), _reinstall(st, bs)
 
 
 def split_model_dim(mesh) -> Optional[int]:
@@ -329,3 +337,112 @@ def sp_active() -> bool:
     st = tp_state()
     return st is not None and st.seq_len is not None \
         and seq_parallel(st.seq_len)
+
+
+# ------------------------------------------------ the batch's split
+class BatchSplit:
+    """The installed batch context: the mesh a step runs over, its dims
+    that split the batch's rows (major to minor, as DTensor orders a dim
+    sharded over several mesh dims) and the step's rule table (None:
+    none installed)."""
+
+    def __init__(self, mesh: DeviceMesh, dims: Sequence[int],
+                 rules: Optional[dict] = None):
+        self.mesh, self.dims, self.rules = mesh, tuple(dims), rules
+
+    @property
+    def size(self) -> int:
+        """How many ranks split the rows."""
+        n = 1
+        for d in self.dims:
+            n *= int(self.mesh.mesh.shape[d])
+        return n
+
+    @property
+    def index(self) -> int:
+        """This rank's block of rows: its coordinates on the split dims,
+        major to minor."""
+        coord = self.mesh.get_coordinate()
+        i = 0
+        for d in self.dims:
+            i = i * int(self.mesh.mesh.shape[d]) + int(coord[d])
+        return i
+
+    @property
+    def groups(self) -> list:
+        """The split dims' process groups, major to minor."""
+        return [self.mesh.get_group(d) for d in self.dims]
+
+
+@contextlib.contextmanager
+def batch_context(mesh: Optional[DeviceMesh], dims: Sequence[int] = (),
+                  rules: Optional[dict] = None):
+    """Run the block's model code on the rows of a batch that ``mesh``'s
+    dims ``dims`` split (none: every rank holds the whole batch), under
+    the step's ``rules``; nothing is installed without a mesh."""
+    prev = getattr(_STATE, "batch", None)
+    _STATE.batch = None if mesh is None else BatchSplit(mesh, dims, rules)
+    try:
+        yield _STATE.batch
+    finally:
+        _STATE.batch = prev
+
+
+def batch_split() -> Optional[BatchSplit]:
+    """The installed batch context where more than one rank splits the
+    rows, else None."""
+    bs = getattr(_STATE, "batch", None)
+    return bs if bs is not None and bs.size > 1 else None
+
+
+def data_groups() -> list:
+    """The process groups of the ranks that split the step's batch, major
+    to minor (empty where no rank splits it)."""
+    bs = batch_split()
+    return [] if bs is None else bs.groups
+
+
+class CapacitySplit(NamedTuple):
+    """The data ranks that split a MoE dispatch buffer's ``capacity`` dim:
+    their group (of this rank's coordinates on the other mesh dims), how
+    many there are, this rank's block, and the batch-split blocks (in
+    ``BatchSplit.index`` order) of the group's ranks, by group rank."""
+    group: object
+    size: int
+    index: int
+    members: list
+
+
+def capacity_split(cap: int) -> Optional[CapacitySplit]:
+    """Where the step's rules put a MoE buffer's ``capacity`` dim of
+    ``cap`` slots on one mesh dim that splits the batch (the reference's
+    ``"capacity": [("data",), ()]``, co-sharded with the rows), that
+    dim's split, else None (every rank holds all ``cap`` slots)."""
+    bs = batch_split()
+    if bs is None:
+        return None
+    axis = _first_fit(bs.mesh, bs.rules, "capacity", cap, None)
+    names = tuple(bs.mesh.mesh_dim_names or ())
+    if not isinstance(axis, str) or names.index(axis) not in bs.dims:
+        return None
+    d = names.index(axis)
+    n = int(bs.mesh.mesh.shape[d])
+    if n == 1:
+        return None
+    stride = 1
+    for e in bs.dims[bs.dims.index(d) + 1:]:
+        stride *= int(bs.mesh.mesh.shape[e])
+    j = int(bs.mesh.get_coordinate()[d])
+    base = bs.index - j * stride
+    return CapacitySplit(bs.mesh.get_group(d), n, j,
+                         [base + i * stride for i in range(n)])
+
+
+def step_mesh() -> Optional[DeviceMesh]:
+    """The mesh the installed train or serve step runs over (its batch
+    context's, else its tensor-parallel context's), or None."""
+    bs = getattr(_STATE, "batch", None)
+    if bs is not None:
+        return bs.mesh
+    st = getattr(_STATE, "tp", None)
+    return None if st is None else st.mesh

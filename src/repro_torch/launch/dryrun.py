@@ -12,8 +12,11 @@ with its fake and its FLOP formula) executes.  The steps gather each
 layer's parameters over the data axes and run the model tensor-parallel
 over ``model`` (``train.trainer``, ``serving.engine``): rank 0 computes
 each product the rules split on its shard, with the tensor-parallel
-collectives (``distributed.collectives``) where GSPMD would put them, and
-a decode attends its ``kv_seq`` slots and merges partial softmaxes.
+collectives (``distributed.collectives``) where GSPMD would put them, a
+MoE block on the rank's experts (or their ``ff`` columns; its routing
+statistics and slots summed over the data axes, as in the reference's one
+program), and a decode attends its ``kv_seq`` slots and merges partial
+softmaxes.
 ``--seq-parallel`` (``make_rules(seq_parallel=True)``) shards the
 residual stream's rows over ``model`` between blocks; the record's
 ``seq_parallel`` says which.  ``launch.hlo_analysis``

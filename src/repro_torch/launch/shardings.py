@@ -184,10 +184,23 @@ def decode_state_sds(run: RunConfig, mesh, shape: shape_lib.ShapeSpec,
 # ---------------------------------------------------------- real tensors
 def _place(x: torch.Tensor, mesh, entries) -> DTensor:
     """This rank's shard of ``x`` (every rank holds it whole: no
-    collective)."""
-    return distribute_tensor(x.detach(), mesh,
-                             dctx.entries_to_placements(mesh, entries),
-                             src_data_rank=None)
+    collective), in storage of its own: a shard of dim 0 is a view of
+    ``x`` and would keep the whole tensor alive."""
+    return own_storage(distribute_tensor(
+        x.detach(), mesh, dctx.entries_to_placements(mesh, entries),
+        src_data_rank=None))
+
+
+def own_storage(d: DTensor) -> DTensor:
+    """``d`` with its local shard copied where it is a view of a larger
+    storage (``distribute_tensor`` chunks the whole tensor)."""
+    local = d.to_local()
+    if local.untyped_storage().nbytes() <= local.numel() \
+            * local.element_size():
+        return d
+    return DTensor.from_local(local.clone(), d.device_mesh, d.placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
 
 
 def distribute_train_state(state: trainer.TrainState, run: RunConfig,

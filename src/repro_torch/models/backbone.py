@@ -14,8 +14,8 @@ tanh-gated MLP).  Where the JAX package scans stacked group parameters,
 the port keeps the layers as one Python list in execution order (the
 prefix, then group by group, pattern position by pattern position, then
 the suffix), and the decode state as one cache entry per layer.  Like the
-reference, the decode runs the dense ``ffn.moe`` whatever ``moe_impl``
-says (a decode step's few tokens do not divide over ranks).
+reference, the decode runs ``ffn.moe`` whatever ``moe_impl`` says (a
+decode step's few tokens do not divide over ranks).
 
 Training keeps the parameters in the JAX layout instead (``train_specs``:
 the prefix list, one stacked tree per pattern position in ``groups``, the
@@ -30,13 +30,14 @@ and ``chunked_xent`` / ``train_loss`` are the reference's loss.
 
 Under a tensor-parallel context (``distributed.context.tp_context``, which
 the train and serve steps install under a mesh) every layer runs on the
-rank's shards (``attention``, ``ffn.mlp``, ``rglru``, ``mamba2``), the
-embedding lookup and the head are vocab-parallel (a masked local lookup
-summed over ``"model"``; a log-sum-exp over the ranks' vocab shards, the
-label's logit from its owner) and a decode state holds the rank's cache
-slots, heads and channels.  ``gather`` maps a parameter subtree to what
-the rank computes with (``gather(tree, whole=)``: its ``"model"`` shards
-kept, or gathered whole for a block that runs whole, as the MoE does).
+rank's shards (``attention``, ``ffn.mlp``, ``ffn.moe`` on its experts or
+their ``ff`` columns, ``rglru``, ``mamba2``), the embedding lookup and the
+head are vocab-parallel (a masked local lookup summed over ``"model"``; a
+log-sum-exp over the ranks' vocab shards, the label's logit from its
+owner) and a decode state holds the rank's cache slots, heads and
+channels.  ``gather`` maps a parameter subtree to what the rank computes
+with (``gather(tree, whole=)``: its ``"model"`` shards kept, or gathered
+whole for a sub-block that runs whole: ``sub_block_local``).
 Under ``seq_parallel`` the residual stream holds the rank's rows between
 blocks (``shard`` after the embedding scatters them).
 """
@@ -251,8 +252,10 @@ def sub_block_local(kind: str, cfg) -> dict:
     parameters are gathered over ``"model"``).  The norms and gates hold
     no ``"model"`` shard."""
     heads = dctx.is_local("heads", cfg.num_heads)
-    out = {"attn": heads, "xattn": heads, "moe": False,
+    out = {"attn": heads, "xattn": heads,
            "mlp": dctx.is_local("ff", cfg.d_ff) if cfg.d_ff else False}
+    if kind == "moe":
+        out["moe"] = ffn.moe_split(ffn.moe_sizes(cfg)) is not None
     if kind == "rec":
         out["rglru"] = rglru.is_local(cfg)
     if kind == "ssd":
@@ -319,13 +322,13 @@ def apply_block(kind: str, p, x, cfg, positions, vision=None, *,
         out, cache = out
     x = x + out
     if kind == "moe":
-        h = common.region_in(common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps),
-                             False)
+        h = common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps)
         moe_fn = moe_ep.moe_ep if cfg.moe_impl == "ep_a2a" else ffn.moe
         y, m = moe_fn(p["moe"], h, num_experts=cfg.num_experts,
-                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                      sizes=ffn.moe_sizes(cfg))
         metrics.update(m)
-        x = x + common.region_out(y, False)
+        x = x + y
     elif "mlp" in p:              # rec, and attn when d_ff > 0
         h = common.rms_norm(x, rp(p["ln2"]), cfg.norm_eps)
         x = x + ffn.mlp(p["mlp"], h, d_ff=cfg.d_ff)
@@ -533,7 +536,8 @@ def decode_block(kind: str, p, cache, x, cfg, pos: int,
     if kind == "moe":
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
         y, _ = ffn.moe(p["moe"], h, num_experts=cfg.num_experts,
-                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       sizes=ffn.moe_sizes(cfg))
         x = x + y
     elif "mlp" in p:
         h = common.rms_norm(x, p["ln2"], cfg.norm_eps)

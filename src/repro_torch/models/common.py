@@ -399,6 +399,41 @@ def row_matmul(x: torch.Tensor, w: torch.Tensor, local: bool
     return torch.matmul(x, w)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched ``_mm_f32``: a [E, M, K] @ b [E, K, N] accumulated and
+    returned in float32."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _RowBmm(torch.autograd.Function):
+    """``_RowMatmul`` batched over experts: x [E, C, K] @ w [E, K, N] with
+    a float32 result from low-precision inputs; the backward is the plain
+    products', in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _bmm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return torch.bmm(g, w.transpose(1, 2)), \
+            torch.bmm(x.transpose(1, 2), g)
+
+
+def row_bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(x, w)`` whose contraction dim is the rank's split of
+    "model": from bfloat16 inputs a float32 partial sum, which the
+    caller's ``region_out`` sums and rounds once."""
+    if dctx.model_group() is not None and x.dtype in _LOW:
+        return _RowBmm.apply(x, w)
+    return torch.bmm(x, w)
+
+
 def region_out(out: torch.Tensor, local: bool,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The block's output back to the residual stream: the ranks' partial

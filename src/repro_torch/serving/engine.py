@@ -35,13 +35,15 @@ from repro_torch.models import backbone
 from repro_torch.models.common import tree_leaves, tree_map
 
 
-def _serving(params, mcfg):
+def _serving(params, mcfg, batch=None):
     """(parameters in the serving layout, the ``gather`` to run them
-    with, the tensor-parallel context to run them in): sharded parameters
-    (DTensor leaves, the JAX layout) are gathered a layer at a time where
-    the step uses them, over the mesh's other axes, the rank keeping its
+    with, the context to run them in): sharded parameters (DTensor
+    leaves, the JAX layout) are gathered a layer at a time where the step
+    uses them, over the mesh's other axes, the rank keeping its
     ``"model"`` shards where the installed rules give the model a
-    tensor-parallel split (``distributed.context.tp_context``); others are
+    tensor-parallel split (``distributed.context.tp_context``), the mesh
+    dims that split the ``batch`` tensor's rows installed beside
+    (``batch_context``: the MoE routes over the whole batch); others are
     run as they are."""
     leaves = tree_leaves(params)
     if not leaves or not isinstance(leaves[0], DTensor):
@@ -54,8 +56,24 @@ def _serving(params, mcfg):
         return tree_map(lambda p: collectives.local_part(
             p, [pl if i == k else Replicate()
                 for i, pl in enumerate(p.placements)]), t)
-    tp = dctx.tp_context(mesh if keep is not None else None, rules)
-    return backbone.serving_params(params, mcfg), gather, tp
+    return backbone.serving_params(params, mcfg), gather, _step_context(
+        mesh if keep is not None else None, rules, mesh, _row_dims(batch))
+
+
+@contextlib.contextmanager
+def _step_context(tp_mesh, rules, mesh, dims):
+    with dctx.tp_context(tp_mesh, rules), \
+            dctx.batch_context(mesh, dims, rules):
+        yield
+
+
+def _row_dims(x) -> tuple:
+    """The mesh dims that shard a DTensor's rows (none for a plain
+    tensor: every rank holds them all)."""
+    if not isinstance(x, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard() and p.dim == 0)
 
 
 def _rows(x, keep: Optional[int] = None):
@@ -108,7 +126,7 @@ def make_serve_step(run: RunConfig, kind: str, *,
     if kind == "prefill":
         if not mcfg.causal:
             def encode_step(params, frames):
-                params, gather, tp = _serving(params, mcfg)
+                params, gather, tp = _serving(params, mcfg, frames)
                 with tp:
                     return backbone.encode(params, mcfg, _rows(frames),
                                            compute_dtype=compute_dtype,
@@ -117,7 +135,7 @@ def make_serve_step(run: RunConfig, kind: str, *,
 
         def prefill_step(params, tokens, image_embeds=None,
                          layer_metrics=None):
-            params, gather, tp = _serving(params, mcfg)
+            params, gather, tp = _serving(params, mcfg, tokens)
             with tp:
                 return backbone.prefill(
                     params, mcfg, _rows(tokens), max_len=max_len,
@@ -133,7 +151,7 @@ def make_serve_step(run: RunConfig, kind: str, *,
                              f"decode step")
 
         def decode_step(params, state, tokens):
-            params, gather, tp = _serving(params, mcfg)
+            params, gather, tp = _serving(params, mcfg, tokens)
             state = _local_state(state, mcfg)
             with tp:
                 return backbone.decode_step(params, mcfg, state,

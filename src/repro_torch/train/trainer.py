@@ -156,8 +156,12 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
         rank's ``"model"`` shards, or whole for a block that runs whole.
         The loss it differentiates is its share of the global token mean,
         so the gradients' sum over the data axes is the single-process
-        gradient.  No mesh is installed for the model itself: ``moe_ep``
-        computes as the dense ``ffn.moe``."""
+        gradient.  The batch context (``distributed.context.
+        batch_context``) tells the model which ranks split the batch: the
+        MoE routes over the whole batch as the single program does
+        (``ffn.route_over``), and ``moe_ep`` runs over the mesh's
+        ``"model"`` axis.  No ``mesh_context`` is installed for the model
+        itself (its activations are plain tensors)."""
         data = _data_dims(micro)
         if data is None:
             loss, metrics = loss_fn(params, micro)
@@ -173,7 +177,8 @@ def make_train_step(run: RunConfig, *, total_steps: int = 10_000):
             return tree_map(lambda p: _Gather.apply(p, data, k), t)
         # the recompute runs in here too
         with dctx.mesh_context(None), dctx.tp_context(
-                mesh if keep is not None else None, rules):
+                mesh if keep is not None else None, rules), \
+                dctx.batch_context(mesh, data, rules):
             loss, metrics = loss_fn(params, local, gather=gather)
             n = metrics["tokens"].detach()
             total = _sum_over(n, mesh, data)

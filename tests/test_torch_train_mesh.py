@@ -68,9 +68,13 @@ CASES = {
     "adamw-2-keep0-sync_ht": ("smollm-360m", "adamw", 2, (True, False),
                               "ht"),
     "hybrid-adamw-1": ("recurrentgemma-2b", "adamw", 1, None, None),
+    "moe-adamw-1": ("qwen2-moe-a2.7b", "adamw", 1, None, None),
 }
-# the cases test_three_steps_track_jax holds in one process
-JAX_CASES = ("adamw-1", "adamw-2-keep0", "adamw-1-sync_ht", "adafactor-1")
+# the cases test_three_steps_track_jax holds in one process, and the MoE
+# model at the default aux weight 0.01: on the data meshes its routing
+# statistics are the whole batch's, as in JAX's one program
+JAX_CASES = ("adamw-1", "adamw-2-keep0", "adamw-1-sync_ht", "adafactor-1",
+             "moe-adamw-1")
 E, D, F, K = 8, 32, 16, 2
 
 
@@ -171,7 +175,8 @@ class _nothing:
 
 
 def _mesh_cases(mesh, shape, states):
-    """On every rank: each case's three steps on a ``shape`` mesh."""
+    """On every rank: each case's three steps on a ``shape`` mesh; on 2
+    ranks the MoE faults' cases too (``_split_moe``, ``_ep_step``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import from_jax_train_state
 
@@ -184,6 +189,9 @@ def _mesh_cases(mesh, shape, states):
         state = from_jax_train_state(run, states[name], device="cpu")
         with _sync_mode(sync, compression):
             out[name] = _three_steps(run, state, keep, m)
+    if shape == (2,):
+        out["split_moe"] = _split_moe(m)
+        out["ep_step"] = _ep_step()
     return out
 
 
@@ -329,9 +337,10 @@ def test_mesh_steps_track_jax(mesh, case, meshes, jax_runs, states):
     assert 0 < parted <= 1e-3, parted
 
 
-def _metrics_track(got_m, want_m):
+def _metrics_track(got_m, want_m, grad_rtol=1e-3):
     for g, w in zip(got_m, want_m, strict=True):
-        for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-3), ("lr", 1e-6)):
+        for k, rtol in (("loss", 1e-5), ("grad_norm", grad_rtol),
+                        ("lr", 1e-6)):
             np.testing.assert_allclose(g[k], w[k], rtol=rtol, atol=1e-9,
                                        err_msg=k)
         if "sync_volume_fraction" in w:
@@ -355,23 +364,24 @@ def test_mesh_steps_track_one_process(mesh, case, meshes, tp_steps, single,
     _each_step_tracks(tp_steps[mesh][case], single[case])
 
 
-def _each_step_tracks(each, one):
+def _each_step_tracks(each, one, grad_rtol=1e-3, update_rtol=1e-4):
     """Each step alone (``each``: a step's metrics and parameters after
     it, from one process's state before it) against one process's steps
     (``one``: their metrics, the final parameters and the state before
-    each step), at the bounds of the module docstring."""
+    each step), at the bounds of the module docstring (the grad norm's
+    and the update's may be given)."""
     from repro_torch.models.common import tree_leaves
     want_m, want_p, before = one
     params = [[np.asarray(x) for x in tree_leaves(b.params)]
               for b in before] + [want_p]
     for i, (got_m, got_p) in enumerate(each):
-        _metrics_track(got_m, want_m[i:i + 1])
+        _metrics_track(got_m, want_m[i:i + 1], grad_rtol)
         if all(np.array_equal(a, b) for a, b in zip(params[i], params[i + 1])):
             # step 0's lr is 0: nothing moves
             assert all(np.array_equal(a, b) for a, b in zip(got_p,
                                                             params[i + 1]))
         else:
-            assert _parted(got_p, params[i + 1], params[i]) <= 1e-4, i
+            assert _parted(got_p, params[i + 1], params[i]) <= update_rtol, i
 
 
 # --------------------------------------------------- the sync's blocks
@@ -583,6 +593,220 @@ def test_moe_ep_backward_matches_dense():
         g = sum(r["train_loss"][1][k] for r in ranks) if _is_expert(k) \
             else ranks[0]["train_loss"][1][k]
         assert _close(g, w, 1e-4), k
+
+
+# ------------------------------------- MoE over a split batch, in a step
+SPLIT_CAP = 12          # slots an expert: 64 tokens x 2 choices overflow it
+SPLIT_WEIGHTS = (0.1, 0.1)      # the loss's weights of aux and z
+
+
+def _split_loss(y, met, r, share):
+    """A rank's share of the loss sum(y r) + 0.1 aux + 0.1 z over the
+    whole batch: its rows' products, and its token share of the
+    losses (which every rank computes whole)."""
+    wa, wz = SPLIT_WEIGHTS
+    return torch.sum(y * r) + share * (wa * met["moe_aux_loss"]
+                                       + wz * met["moe_z_loss"])
+
+
+def _split_moe(mesh):
+    """On each of the 2 ranks of a ``("data",)`` mesh: ``ffn.moe`` on the
+    rank's half of ``_moe_data``'s batch at ``SPLIT_CAP`` slots (choices
+    drop), with the batch context (the ranks that split the batch: the
+    single program's routing), again with the rules beside it (the
+    reference's ``capacity`` on ``"data"``: each rank runs its block of
+    every expert's slots) and without it (each rank routing its half
+    alone, the fault); each time y, the metrics and the gradients of the
+    rank's share of the loss by x and the router, every rank's gathered
+    in rank order."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.models import ffn
+    from repro_torch.models.common import tree_map
+
+    p_np, x_np, r_np = _moe_data()
+    rules = sharding.make_rules()
+    n, i = dist.get_world_size(), dist.get_rank()
+    rows = slice(i * 4 // n, (i + 1) * 4 // n)
+    out = {}
+    for label, ctx in (("split", dctx.batch_context(mesh, (0,))),
+                       ("capacity", dctx.batch_context(mesh, (0,), rules)),
+                       ("alone", _nothing())):
+        p = tree_map(lambda a: torch.tensor(a).requires_grad_(True), p_np)
+        x = torch.tensor(x_np[rows]).requires_grad_(True)
+        with ctx:
+            y, met = ffn.moe(p, x, num_experts=E - 2, top_k=K,
+                             deterministic_capacity=SPLIT_CAP)
+            cut = dctx.capacity_split(SPLIT_CAP) is not None
+        _split_loss(y, met, torch.tensor(r_np[rows]), 1 / n).backward()
+        mine = (y.detach().numpy(), {k: float(v) for k, v in met.items()},
+                x.grad.numpy(), p["router"].grad.numpy(), cut)
+        every = [None] * n
+        dist.all_gather_object(every, mine)
+        out[label] = every
+    return out
+
+
+def _step_grads(run, state, batch, mesh):
+    """One train step of ``state`` on ``batch`` under ``mesh`` with the
+    train rules: its metrics and the gradients (whole, float32) as the
+    step takes them from the parameters."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import shardings
+    from repro_torch.train import trainer
+
+    grads = {}
+    orig = trainer._take_grads
+
+    def spy(leaves, acc_dtype):
+        grads["g"] = [p.grad.full_tensor().numpy().copy() for p in leaves]
+        return orig(leaves, acc_dtype)
+    with dctx.mesh_context(mesh, sharding.make_rules(fsdp=True)):
+        st = shardings.distribute_train_state(state, run, mesh)
+        step = trainer.make_train_step(run, total_steps=20)
+        trainer._take_grads = spy
+        try:
+            _, met = step(st, shardings.distribute_batch(batch, run, mesh))
+        finally:
+            trainer._take_grads = orig
+    return {k: float(v) for k, v in met.items()}, grads["g"]
+
+
+def _ep_step(shape=(1, 2)):
+    """On each rank of a ``("data", "model")`` mesh of ``shape``: a smoke
+    Qwen2-MoE with ``moe_impl="ep_a2a"`` (capacity factor 1.25: the 8-slot
+    floor drops choices), its train step's loss and gradients, and the
+    same loss by ``moe_ep`` called with the mesh (``mesh_context``: every
+    rank the whole batch and tree, JAX's ``moe_ep`` ownership) with its
+    gradients, the expert leaves' summed over the ``"model"`` ranks (each
+    holds its experts', summed over ``"data"``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import backbone
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import trainer
+
+    m = make_mesh(shape, ("data", "model"), device_type="cpu")
+    run = smoke_run("qwen2-moe-a2.7b", "adamw", 1, None)
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, moe_impl="ep_a2a"))
+    params = backbone.init_train_params(
+        run.model, torch.Generator().manual_seed(6), device="cpu")
+    batch = token_batch(run.model, 100)
+    state = trainer.TrainState(torch.zeros((), dtype=torch.int32), params,
+                               tree_map(lambda q: q.detach().clone(),
+                                        params),
+                               trainer.optim.adamw_init(params), None)
+    met, grads = _step_grads(run, state, batch, m)
+    params = tree_map(lambda q: q.detach().clone().requires_grad_(True),
+                      params)
+    with dctx.mesh_context(m):
+        loss, want_met = backbone.train_loss(params, run.model, batch,
+                                             compute_dtype=torch.float32)
+        loss.backward()
+    want = []
+    for (path, _), q in zip(_named_leaves(params), tree_leaves(params)):
+        g = q.grad.clone()
+        if _is_expert(path):
+            dist.all_reduce(g, group=m.get_group(1))
+        want.append(g.numpy())
+    with torch.no_grad():       # the dense ffn.moe, one process
+        _, dense = backbone.train_loss(params, run.model, batch,
+                                       compute_dtype=torch.float32)
+    return (met, grads, {k: float(v) for k, v in want_met.items()}, want,
+            float(dense["moe_aux_loss"]))
+
+
+def _normwise(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def test_moe_routes_the_whole_split_batch(meshes):
+    """Fault A: ``ffn.moe`` on a batch split over 2 data ranks, with the
+    batch context, is JAX's ``ffn.moe`` on the whole batch (one program):
+    y, the aux and z losses and the drop fraction (choices drop at
+    ``SPLIT_CAP`` slots), and the gradients of the loss by x and the
+    router (the ranks' shares summed), at 1e-5 normwise (float32 sums of
+    the ranks' statistics and the ranks' gradient shares in another
+    order; the drop fraction to the same count of kept choices).  Each
+    rank routing its half alone (no context, what the port did before)
+    parts from it by more than 1e-3 in the aux loss and the drops."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import ffn as jffn
+
+    p, x, r = _moe_data()
+
+    def jloss(xx, router):
+        q = {**jax.tree.map(jnp.asarray, p), "router": router}
+        y, met = jffn.moe(q, xx, num_experts=E - 2, top_k=K,
+                          deterministic_capacity=SPLIT_CAP)
+        wa, wz = SPLIT_WEIGHTS
+        return (jnp.sum(y * r) + wa * met["moe_aux_loss"]
+                + wz * met["moe_z_loss"]), (y, met)
+    (_, (jy, jm)), (jgx, jgr) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(x),
+                                             jnp.asarray(p["router"]))
+    jm = {k: float(v) for k, v in jm.items()}
+    assert jm["moe_drop_frac"] > 0.05
+    ranks = meshes["data2"]["split_moe"]
+    # the buffer's capacity split over the ranks where the rules are given
+    assert [e[4] for e in ranks["capacity"]] == [True, True]
+    assert not any(e[4] for e in ranks["split"])
+    for split in (ranks["split"], ranks["capacity"]):
+        y = np.concatenate([e[0] for e in split])
+        gx = np.concatenate([e[2] for e in split])
+        gr = sum(e[3] for e in split)
+        assert _normwise(y, jy) <= 1e-5
+        assert _normwise(gx, jgx) <= 1e-5
+        assert _normwise(gr, jgr) <= 1e-5
+        for e in split:
+            for k in ("moe_aux_loss", "moe_z_loss"):
+                np.testing.assert_allclose(e[1][k], jm[k], rtol=1e-5,
+                                           err_msg=k)
+            # the same count of kept choices of the 64 x 2
+            assert abs(e[1]["moe_drop_frac"] - jm["moe_drop_frac"]) \
+                < 0.5 / (64 * K)
+    alone = ranks["alone"]
+    assert max(abs(e[1]["moe_aux_loss"] - jm["moe_aux_loss"])
+               for e in alone) > 1e-3
+    assert max(abs(e[1]["moe_drop_frac"] - jm["moe_drop_frac"])
+               for e in alone) > 1e-3
+
+
+def test_ep_a2a_runs_moe_ep_on_the_model_axis(meshes):
+    """Fault B: a train step of ``moe_impl="ep_a2a"`` on a ("data",
+    "model") = (1, 2) mesh runs ``moe_ep`` over the ``"model"`` axis, as
+    JAX's does under a mesh (``check_ep_step``; ``test_torch_tp`` runs
+    the (2, 2) mesh, whose data ranks split the batch)."""
+    check_ep_step(meshes["data2"]["ep_step"])
+
+
+def check_ep_step(ep):
+    """``_ep_step``'s step against ``moe_ep`` called with the mesh: the
+    loss, aux loss and drop fraction (JAX's ``moe_ep`` ownership: each
+    rank routes its batch block's share of the sequence, 8-slot
+    capacities, per-chunk statistics averaged) within 1e-5, and the
+    gradients within 2^-16 of each leaf's largest entry (Qwen2-MoE's
+    float32 bound, ``test_torch_tp``).  The dense ``ffn.moe``, which the
+    step ran before, parts from it in the aux loss by more than 1e-4."""
+    met, grads, want_met, want, dense_aux = ep
+    for k in ("loss", "moe_aux_loss", "moe_z_loss", "moe_drop_frac"):
+        np.testing.assert_allclose(met[k], want_met[k], rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    assert met["moe_drop_frac"] > 0
+    assert abs(dense_aux - met["moe_aux_loss"]) > 1e-4
+    assert len(grads) == len(want)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert _normwise(g, w) <= 2.0 ** -16, (i, w.shape,
+                                               _normwise(g, w))
 
 
 # ------------------------------------------------- the kernels' rules
