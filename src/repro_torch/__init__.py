@@ -9,8 +9,9 @@ fault injection, the resident set, the write-behind sink, the per-event
 worker and its replay drivers), ``features`` and ``distributed`` (the
 feature engine on one card and its layouts), ``serving`` (the scoring
 pipeline and its open-loop frontend, LM serving steps), ``checkpoint``
-(state save and restore) and the model stack (``configs``, ``models``,
-``launch``).  It imports neither
+(state save and restore), ``tracing`` (the spans and counters of the
+persistence and serving paths) and the model stack (``configs``,
+``models``, ``launch``).  It imports neither
 ``jax`` nor ``repro``.  Entry points run on ``cuda:0`` unless the caller
 passes ``device="cpu"``.
 """

@@ -51,6 +51,7 @@ from typing import Callable, List, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.engine import make_step
 from repro_torch.core.thinning import prng_key
 from repro_torch.core.types import EngineConfig, Event, ProfileState, StepInfo
@@ -354,6 +355,7 @@ def _run_planned(bstep, state, plan: _GroupPlan, d: dict, rng):
                  d["h_slots"], d["h_scal"], d["h_agg"], plan.misses)
 
 
+@tracing.entry
 def run_stream(cfg: EngineConfig, state: ProfileState, keys, qs, ts,
                *, batch: int = 4096, mode: str = "fast",
                rng=None, collect_info: bool = True,
@@ -505,8 +507,9 @@ def group_source(blocks: dict, device, depth: int):
     drivers: the serial driver gets slices of one whole-stream copy on the
     device, the pipelined one host slices that its prep thread stages."""
     if depth == 1:
-        blocks = {k: torch.from_numpy(x).to(device)
-                  for k, x in blocks.items()}
+        with tracing.span("stream.stage"):
+            blocks = {k: torch.from_numpy(x).to(device)
+                      for k, x in blocks.items()}
     return lambda lo, hi: {k: x[lo:hi] for k, x in blocks.items()}
 
 
@@ -537,11 +540,13 @@ def _drive_with_sink(bstep, state, n_blocks, group, group_of, rng, sink, *,
     outs_all = []
     for lo in range(0, n_blocks, group):
         hi = min(lo + group, n_blocks)
-        ev, gidx = _sink_event(group_of(lo, hi))
-        state, outs, rows = bstep(state, ev, rng, gidx, *consts)
-        z = outs.z if collect_info else outs[0]
-        sink.submit(sink_keys[lo:hi].reshape(-1), z,
-                    valid_host[lo:hi].reshape(-1), rows)
+        with tracing.span("stream.group"):
+            with tracing.span("stream.step"):
+                ev, gidx = _sink_event(group_of(lo, hi))
+                state, outs, rows = bstep(state, ev, rng, gidx, *consts)
+            z = outs.z if collect_info else outs[0]
+            sink.submit(sink_keys[lo:hi].reshape(-1), z,
+                        valid_host[lo:hi].reshape(-1), rows)
         outs_all.append(outs)
     return state, outs_all
 
@@ -602,12 +607,13 @@ def _drive_pipelined_sink(bstep, state, n_blocks, group, group_of, rng,
             # the generation's own event guards its buffers; the token
             # only bounds how far prep runs ahead
             tokens.release()
-            with sink.overlap.device():
-                ev, gidx = _sink_event(_consume(staged, done, dev))
-                state, outs, rows = bstep(state, ev, rng, gidx, *consts)
-            z = outs.z if collect_info else outs[0]
-            sink.submit(sink_keys[lo:hi].reshape(-1), z,
-                        valid_host[lo:hi].reshape(-1), rows)
+            with tracing.span("stream.group"):
+                with sink.overlap.device(), tracing.span("stream.step"):
+                    ev, gidx = _sink_event(_consume(staged, done, dev))
+                    state, outs, rows = bstep(state, ev, rng, gidx, *consts)
+                z = outs.z if collect_info else outs[0]
+                sink.submit(sink_keys[lo:hi].reshape(-1), z,
+                            valid_host[lo:hi].reshape(-1), rows)
             outs_all.append(outs)
     finally:
         stop.set()
@@ -658,14 +664,16 @@ def _drive_with_residency(bstep, state, n_blocks, group, plan_group, rng,
     t_fresh, t_re = reads_of(pending[0])
     while True:
         plan = pending[i]
-        rows_f, rows_r = t_fresh.result(), t_re.result()
-        with sink.overlap.host():
-            h = plan.build_hydration(rows_f, rows_r)
-            d = _consume(*stager.stage(_hydration_arrays(plan, h)),
-                         state.device)
-        state, outs, rows = _run_planned(bstep, state, plan, d, rng)
-        z = outs.z if collect_info else outs[0]
-        sink.submit(plan.sink_keys, z, plan.valid, rows)
+        with tracing.span("stream.group"):
+            rows_f, rows_r = t_fresh.result(), t_re.result()
+            with sink.overlap.host():
+                h = plan.build_hydration(rows_f, rows_r)
+                d = _consume(*stager.stage(_hydration_arrays(plan, h)),
+                             state.device)
+            with tracing.span("stream.step"):
+                state, outs, rows = _run_planned(bstep, state, plan, d, rng)
+            z = outs.z if collect_info else outs[0]
+            sink.submit(plan.sink_keys, z, plan.valid, rows)
         part_outs.append((outs, d["valid"]))
         if plan.last:
             outs_all.append(_merge_subgroup_outs(part_outs, collect_info))
@@ -793,13 +801,15 @@ def _drive_pipelined_residency(bstep, state, n_blocks, group, plan_group,
                 raise item[1]
             _, plan, staged, done, seq = item
             tokens.release()
-            # metered as device time: the launches hold the dispatch
-            # thread for the window prep work can hide inside
-            with sink.overlap.device():
-                d = _consume(staged, done, dev)
-                state, outs, rows = _run_planned(bstep, state, plan, d, rng)
-            z = outs.z if collect_info else outs[0]
-            sink.submit(plan.sink_keys, z, plan.valid, rows, seq=seq)
+            with tracing.span("stream.group"):
+                # metered as device time: the launches hold the dispatch
+                # thread for the window prep work can hide inside
+                with sink.overlap.device(), tracing.span("stream.step"):
+                    d = _consume(staged, done, dev)
+                    state, outs, rows = _run_planned(bstep, state, plan, d,
+                                                     rng)
+                z = outs.z if collect_info else outs[0]
+                sink.submit(plan.sink_keys, z, plan.valid, rows, seq=seq)
             part_outs.append((outs, d["valid"]))
             if plan.last:
                 outs_all.append(_merge_subgroup_outs(part_outs,
@@ -850,14 +860,16 @@ def _merge_subgroup_outs(parts, collect_info):
 def _concat_groups(outs_all, collect_info: bool, n_taus: int, dev):
     """Concatenate per-group outputs along the block axis: a StepInfo
     ``[n_blocks, B]``, or the per-block write counts."""
-    if collect_info:
+    with tracing.span("stream.concat"):
+        if collect_info:
+            if not outs_all:
+                e = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt,
+                                                              device=dev)
+                return StepInfo(z=e(0, 0, dt=torch.bool), p=e(0, 0),
+                                lam_hat=e(0, 0),
+                                features=e(0, 0, 4 * n_taus),
+                                writes=e(0, dt=torch.int32))
+            return StepInfo(*(torch.cat(f) for f in zip(*outs_all)))
         if not outs_all:
-            e = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt,
-                                                          device=dev)
-            return StepInfo(z=e(0, 0, dt=torch.bool), p=e(0, 0),
-                            lam_hat=e(0, 0), features=e(0, 0, 4 * n_taus),
-                            writes=e(0, dt=torch.int32))
-        return StepInfo(*(torch.cat(f) for f in zip(*outs_all)))
-    if not outs_all:
-        return torch.zeros((0,), dtype=torch.int32, device=dev)
-    return torch.cat([o[1] for o in outs_all])
+            return torch.zeros((0,), dtype=torch.int32, device=dev)
+        return torch.cat([o[1] for o in outs_all])

@@ -51,6 +51,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import engine as core_engine
 from repro_torch.core import estimators
 from repro_torch.core import stream as core_stream
@@ -214,18 +215,21 @@ class ShardedFeatureEngine:
         """This shard's host ``[n_blocks, B]`` column of a routed stream:
         local state rows (``rows=True``) or the global ids in the key
         column; ``slot`` maps events to the global blocks' flat slots."""
-        key = np.asarray(keys, np.int32)
-        q = np.asarray(qs, np.float32)
-        t = np.asarray(ts, np.float32)
-        n, B = self.n_shards, int(batch_per_shard)
-        shard, local = self.route(key)
-        out_key, out_q, out_t, out_valid, slot, n_blocks = \
-            route_stream_blocks(shard, local if rows else key, q, t, n, B)
-        cols = slice(self.shard * B, (self.shard + 1) * B)
-        blk = lambda x: np.ascontiguousarray(
-            x.reshape(n_blocks, n * B)[:, cols])
-        return (blk(out_key), blk(out_q), blk(out_t), blk(out_valid), slot,
-                n_blocks)
+        with tracing.span("stream.route"):
+            key = np.asarray(keys, np.int32)
+            q = np.asarray(qs, np.float32)
+            t = np.asarray(ts, np.float32)
+            n, B = self.n_shards, int(batch_per_shard)
+            shard, local = self.route(key)
+            out_key, out_q, out_t, out_valid, slot, n_blocks = \
+                route_stream_blocks(shard, local if rows else key, q, t, n,
+                                    B)
+            cols = slice(self.shard * B, (self.shard + 1) * B)
+            blk = lambda x: np.ascontiguousarray(
+                x.reshape(n_blocks, n * B)[:, cols])
+            tracing.count("stream.blocks", n_blocks)
+            return (blk(out_key), blk(out_q), blk(out_t), blk(out_valid),
+                    slot, n_blocks)
 
     def partition_stream(self, key, q, t, batch_per_shard: int
                          ) -> Tuple[Event, np.ndarray]:
@@ -295,6 +299,7 @@ class ShardedFeatureEngine:
         return self._local_step(st, ev, rng, rng_entity=ent)
 
     # ----------------------------------------------------------- stream
+    @tracing.entry
     def run_stream(self, state: ProfileState, keys, qs, ts, *,
                    batch_per_shard: int = 1024, rng=None,
                    collect_info: bool = True, sink=None,

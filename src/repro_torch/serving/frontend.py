@@ -100,6 +100,7 @@ from typing import List, NamedTuple, Optional, Protocol, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.stream import (_block_runner, _consume,
                                      _residency_step, _sink_step, _Stager,
                                      hydration_width, pack_hydration)
@@ -230,6 +231,7 @@ class ServeResult:
     features: np.ndarray      # [N, F] profile feature vectors
     scores: Optional[np.ndarray]   # [N] anomaly logits (None: no scorer)
     latency_s: np.ndarray     # [N] completion - arrival on the clock
+    admitted_s: np.ndarray    # [N] clock time the request joined the queue
     order: np.ndarray         # [N] rids in dispatch order (FIFO audit)
     batches: List[BatchRecord]
     stats: FrontendStats
@@ -416,6 +418,7 @@ class ServingFrontend:
             self._bstep = _block_runner(cfg, mode, True, exact_impl)
 
     # ------------------------------------------------------------- serve
+    @tracing.entry
     def run(self, requests: Sequence[Request]) -> ServeResult:
         """Drive the open-loop admission queue over a request schedule.
 
@@ -437,6 +440,7 @@ class ServingFrontend:
             scores=np.zeros(n, np.float32) if self.scorer is not None
             else None,
             latency_s=np.zeros(n, np.float64),
+            admitted_s=np.zeros(n, np.float64),
             order=np.zeros(n, np.int64), batches=[], stats=self.stats)
         if n == 0:
             return out
@@ -475,16 +479,20 @@ class ServingFrontend:
         while (i < n or pending) and self._disp_exc is None:
             now = self.clock.now()
             first = i
-            while i < n and reqs[i].arrival_s <= now:
-                r = reqs[i]
-                if self._last_arrival is not None:
-                    gap = r.arrival_s - self._last_arrival
-                    self._ewma_ia = (gap if self._ewma_ia is None else
-                                     self._alpha * gap +
-                                     (1.0 - self._alpha) * self._ewma_ia)
-                self._last_arrival = r.arrival_s
-                pending.append(r)
-                i += 1
+            if i < n and reqs[i].arrival_s <= now:
+                with tracing.span("frontend.admit"):
+                    while i < n and reqs[i].arrival_s <= now:
+                        r = reqs[i]
+                        if self._last_arrival is not None:
+                            gap = r.arrival_s - self._last_arrival
+                            self._ewma_ia = (
+                                gap if self._ewma_ia is None else
+                                self._alpha * gap +
+                                (1.0 - self._alpha) * self._ewma_ia)
+                        self._last_arrival = r.arrival_s
+                        pending.append(r)
+                        out.admitted_s[r.rid] = now
+                        i += 1
             if self._rmap is not None and i > first:
                 # one prefetch read for everything this sweep admitted
                 # (a burst admits many requests at once)
@@ -508,7 +516,8 @@ class ServingFrontend:
             next_arrival = reqs[i].arrival_s if i < n else math.inf
             # ties admit first: a request landing exactly on the deadline
             # still rides the dispatching batch
-            self.clock.sleep(min(deadline, next_arrival) - now)
+            with tracing.span("frontend.sleep"):
+                self.clock.sleep(min(deadline, next_arrival) - now)
 
     def _effective_wait(self, k: int) -> float:
         """Partial-batch wait cap for a queue of ``k`` requests.
@@ -611,22 +620,27 @@ class ServingFrontend:
     def _dispatch(self, pending: deque, out: ServeResult, done: int,
                   stager: _Stager, *, full: bool, deadline: float,
                   tightened: bool = False) -> int:
-        batch_reqs, k, arrays, t_disp = self._compose(
-            pending, full=full, tightened=tightened)
-        n_miss = n_pre = 0
-        if self._rmap is not None:
-            n_miss, n_pre, _, evicted = self._plan_hydration(arrays, False)
-        keys, valid = arrays["key"], arrays["valid"]
-        d = _consume(*stager.stage(arrays), self.device)
-        outs = self._launch(d, n_miss, keys, valid)
-        # prefetch the *next* batches' misses now, while this batch's
-        # device compute and flush are still in flight: the ordered read
-        # rides the sink FIFO behind the flush just submitted, so a key
-        # this batch evicted reads its latest durable row
-        if self._rmap is not None:
-            self._prefetch_victims(evicted)
-        self._materialize(out, batch_reqs, k, full, deadline, t_disp, outs,
-                          done, n_miss, n_pre)
+        with tracing.span("frontend.dispatch", len(out.batches)):
+            with tracing.span("frontend.compose"):
+                batch_reqs, k, arrays, t_disp = self._compose(
+                    pending, full=full, tightened=tightened)
+                n_miss = n_pre = 0
+                if self._rmap is not None:
+                    n_miss, n_pre, _, evicted = self._plan_hydration(
+                        arrays, False)
+            keys, valid = arrays["key"], arrays["valid"]
+            with tracing.span("frontend.stage"):
+                d = _consume(*stager.stage(arrays), self.device)
+            with tracing.span("frontend.launch"):
+                outs = self._launch(d, n_miss, keys, valid)
+            # prefetch the *next* batches' misses now, while this batch's
+            # device compute and flush are still in flight: the ordered
+            # read rides the sink FIFO behind the flush just submitted, so
+            # a key this batch evicted reads its latest durable row
+            if self._rmap is not None:
+                self._prefetch_victims(evicted)
+            self._materialize(out, batch_reqs, k, full, deadline, t_disp,
+                              outs, done, n_miss, n_pre)
         return done + k
 
     # ------------------------------------------- threaded admission plane
@@ -689,16 +703,18 @@ class ServingFrontend:
             if self._disp_exc is not None:
                 raise RuntimeError("frontend dispatch thread failed") \
                     from self._disp_exc
-        batch_reqs, k, arrays, t_disp = self._compose(
-            pending, full=full, tightened=tightened)
-        n_miss = n_pre = 0
-        seq = None
-        if self._rmap is not None:
-            # demand reads ride the staged/unordered lanes and are waited
-            # here, on the admission thread
-            n_miss, n_pre, seq, _ = self._plan_hydration(arrays, True)
+        with tracing.span("frontend.compose"):
+            batch_reqs, k, arrays, t_disp = self._compose(
+                pending, full=full, tightened=tightened)
+            n_miss = n_pre = 0
+            seq = None
+            if self._rmap is not None:
+                # demand reads ride the staged/unordered lanes and are
+                # waited here, on the admission thread
+                n_miss, n_pre, seq, _ = self._plan_hydration(arrays, True)
         keys, valid = arrays["key"], arrays["valid"]
-        staged, copied = stager.stage(arrays)
+        with tracing.span("frontend.stage"):
+            staged, copied = stager.stage(arrays)
         ready.put((done, batch_reqs, k, full, deadline, t_disp,
                    (staged, copied, keys, valid, seq, n_miss, n_pre)))
         return done + k
@@ -710,25 +726,33 @@ class ServingFrontend:
         launch, submit the flush (trailed by the staged epoch), copy the
         outputs to the host."""
         staged, copied, keys, valid, seq, n_miss, n_pre = payload
-        d = _consume(staged, copied, self.device)
-        outs = self._launch(d, n_miss, keys, valid, seq)
-        self._materialize(out, batch_reqs, k, full, deadline, t_disp, outs,
-                          done, n_miss, n_pre)
+        with tracing.span("frontend.dispatch", len(out.batches)):
+            with tracing.span("frontend.launch"):
+                d = _consume(staged, copied, self.device)
+                outs = self._launch(d, n_miss, keys, valid, seq)
+            self._materialize(out, batch_reqs, k, full, deadline, t_disp,
+                              outs, done, n_miss, n_pre)
 
     def _materialize(self, out: ServeResult, batch_reqs, k: int,
                      full: bool, deadline: float, t_disp: float, outs,
                      done: int, n_miss: int, n_pre: int) -> None:
-        scores = (score_at_width(self.scorer, outs.features[0], self.batch)
-                  if self.scorer is not None else None)
+        with tracing.span("frontend.score"):
+            scores = (score_at_width(self.scorer, outs.features[0],
+                                     self.batch)
+                      if self.scorer is not None else None)
         # the copies wait for the device: completion includes its work
-        feats = outs.features[0].cpu().numpy()
-        z = outs.z[0].cpu().numpy()
-        p = outs.p[0].cpu().numpy()
-        lam = outs.lam_hat[0].cpu().numpy()
+        with tracing.span("frontend.materialize"):
+            feats = outs.features[0].cpu().numpy()
+            z = outs.z[0].cpu().numpy()
+            p = outs.p[0].cpu().numpy()
+            lam = outs.lam_hat[0].cpu().numpy()
         t_done = self.clock.now()
         rids = np.fromiter((r.rid for r in batch_reqs), np.int64, k)
         arrival = np.fromiter((r.arrival_s for r in batch_reqs), np.float64,
                               k)
+        if tracing.active():
+            tracing.values("frontend.admit_lag_s",
+                           out.admitted_s[rids] - arrival)
         out.z[rids] = z[:k]
         out.p[rids] = p[:k]
         out.lam_hat[rids] = lam[:k]

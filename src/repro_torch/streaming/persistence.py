@@ -44,6 +44,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.types import (EngineConfig, ProfileState,
                                     resolve_device, state_from_numpy)
 from repro_torch.streaming.durable import BACKENDS, open_partition_stores
@@ -202,7 +203,8 @@ class _OverlapMeter:
     def device(self):
         self.begin(self.DEVICE)
         try:
-            yield
+            with tracing.span("sink.d2h"):
+                yield
         finally:
             self.end(self.DEVICE)
 
@@ -438,6 +440,9 @@ class WriteBehindSink:
         self._unsynced_cv = threading.Condition()
         self.stats = SinkStats()
         self.overlap = _OverlapMeter()
+        # flush groups submitted so far: the next one's number, which its
+        # spans carry on every thread (``tracing``)
+        self.submitted = 0
         # epoch-gated read lane (see ``stage_epoch``): key -> epoch of the
         # latest *staged* flush containing that key.  Written only by the
         # single staging thread; sized on demand.
@@ -497,6 +502,11 @@ class WriteBehindSink:
             # rows and eventually deadlock on the bounded queue
             raise RuntimeError("submit() on a closed WriteBehindSink")
         self._check()
+        group, self.submitted = self.submitted, self.submitted + 1
+        with tracing.span("sink.submit", group):
+            self._submit(keys, z, valid, rows, seq, group)
+
+    def _submit(self, keys, z, valid, rows, seq, group) -> None:
         if (self._max_unsynced is not None
                 and self._unsynced > self._max_unsynced):
             # measured-IO admission: hold the driver until the store
@@ -511,7 +521,7 @@ class WriteBehindSink:
             self.stats.submit_wait_s += time.perf_counter() - t0
             self._check()
         if self._serial:
-            self._flush_block(keys, z, valid, rows, seq)
+            self._flush_block(keys, z, valid, rows, seq, group)
             return
         if self._overflow == "degrade-to-serial" and self._q.full():
             # graceful degradation: drain the pipeline (preserving FIFO
@@ -524,11 +534,11 @@ class WriteBehindSink:
                 sq.join()
             self._check()
             self.stats.degraded_flushes += 1
-            self._flush_block(keys, z, valid, rows, seq, inline=True)
+            self._flush_block(keys, z, valid, rows, seq, group, inline=True)
             self.stats.submit_wait_s += time.perf_counter() - t0
             return
         t0 = time.perf_counter()
-        self._q.put(("block", keys, z, valid, rows, seq))
+        self._q.put(("block", keys, z, valid, rows, seq, group))
         self.stats.submit_wait_s += time.perf_counter() - t0
 
     def stage_epoch(self, keys, valid=None) -> int:
@@ -911,10 +921,10 @@ class WriteBehindSink:
                 elif item[0] == "epoch":
                     self._mark_applied(i, item[1])
                 else:
-                    _, ks, rows, nbytes = item
+                    _, ks, rows, nbytes, group = item
                     try:
                         if self._exc is None:
-                            self._exec_put(i, ks, rows)
+                            self._exec_put(i, ks, rows, group)
                     finally:
                         # always release the admission budget — including
                         # the skipped-on-poison path, or a blocked
@@ -955,18 +965,19 @@ class WriteBehindSink:
             return int(rows.nbytes)
         return sum(len(r) for r in rows)
 
-    def _put(self, p: int, keys, rows, inline: bool = False) -> None:
+    def _put(self, p: int, keys, rows, group: Optional[int],
+             inline: bool = False) -> None:
         """Route one partition's packed rows to its store (worker thread,
         or directly under the serial strawman / a degraded flush)."""
         nbytes = self._payload_bytes(rows)
         self._unsynced_add(nbytes)
         if self._serial or inline:
             try:
-                self._exec_put(p, keys, rows)
+                self._exec_put(p, keys, rows, group)
             finally:
                 self._unsynced_sub(nbytes)
         else:
-            self._store_qs[p].put(("put", keys, rows, nbytes))
+            self._store_qs[p].put(("put", keys, rows, nbytes, group))
 
     def _unsynced_add(self, nbytes: int) -> None:
         with self._unsynced_cv:
@@ -979,15 +990,17 @@ class WriteBehindSink:
             self._unsynced -= nbytes
             self._unsynced_cv.notify_all()
 
-    def _exec_put(self, p: int, keys, rows) -> None:
+    def _exec_put(self, p: int, keys, rows,
+                  group: Optional[int] = None) -> None:
         """Execute one partition's batched put, then mirror the packed
         bytes into its L2 cache — insertion at put *execution* time on the
         partition's single writer thread is what keeps every later ordered
         read's L2 view identical to the store's."""
         t0 = time.perf_counter()
-        self._with_retry(self.stores[p].multi_put, keys, rows)
-        if self.l2 is not None:
-            self.l2[p].put_rows(keys, rows)
+        with tracing.span("sink.put", group):
+            self._with_retry(self.stores[p].multi_put, keys, rows)
+            if self.l2 is not None:
+                self.l2[p].put_rows(keys, rows)
         self._put_busy[p] += time.perf_counter() - t0
 
     def _exec_get(self, p: int, keys):
@@ -1016,7 +1029,12 @@ class WriteBehindSink:
         return rows
 
     def _flush_block(self, keys, z, valid, rows, seq: Optional[int] = None,
+                     group: Optional[int] = None,
                      inline: bool = False) -> None:
+        with tracing.span("sink.flush", group):
+            self._flush_rows(keys, z, valid, rows, seq, group, inline)
+
+    def _flush_rows(self, keys, z, valid, rows, seq, group, inline):
         t0 = time.perf_counter()
         # flush groups arrive with z shaped [G, B]; lanes are flat below.
         # The ``_host`` conversions below are the sink-gather sync
@@ -1065,7 +1083,7 @@ class WriteBehindSink:
             part = self._partition_fn(uk)
             for p in np.unique(part):
                 m = part == p
-                self._put(int(p), uk[m], packed[m], inline=inline)
+                self._put(int(p), uk[m], packed[m], group, inline=inline)
         if seq is not None:
             # epoch marker trails the block's puts on *every* partition
             # (even ones this block wrote nothing to): once a partition
