@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It builds the port's four CUDA kernel sources from this checkout
-(``thinning_rmw``, ``decay_scan`` with its backward, ``flash_attention``,
-``flash_attention_bwd``: one ``nvcc`` each for ``sm_90a``, all started
+It builds the port's five CUDA kernel sources from this checkout
+(``thinning_rmw``, ``segment_fold`` (fast mode's fold), ``decay_scan``
+with its backward, ``flash_attention``, ``flash_attention_bwd``: one
+``nvcc`` each for ``sm_90a``, all started
 together, into ``build/``), checks with ``cuobjdump`` that the bfloat16
 attention kernels (the forward, and the backward's dK/dV and dQ kernels)
 hold ``HGMMA`` (tensor-core) instructions, then runs fourteen phases; any
@@ -640,8 +641,8 @@ def build_kernels():
     from repro_torch.kernels import _build, decay_scan, flash_attention
     from repro_torch.kernels import thinning_rmw as trmw
 
-    kernels = (trmw.KERNEL, decay_scan.KERNEL, flash_attention.KERNEL,
-               flash_attention.BWD_KERNEL)
+    kernels = (trmw.KERNEL, trmw.FOLD_KERNEL, decay_scan.KERNEL,
+               flash_attention.KERNEL, flash_attention.BWD_KERNEL)
     t0 = time.perf_counter()
     _build.build_all(kernels)
     wall = time.perf_counter() - t0

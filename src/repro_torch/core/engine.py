@@ -12,19 +12,25 @@ The counterpart of ``repro.core.engine``, with the same two modes:
   beyond ``exact_rounds`` in one batch are dropped, as in the reference:
   size ``exact_rounds`` to the stream's maximum events per key per batch.
 * ``fast`` — decisions for the whole micro-batch against the batch-start
-  state, then a closed-form segment fold of the persisted contributions.
-  Decisions from a shared state are bitwise those of the JAX engine; the
-  fold uses ``torch.exp`` and segment sums in another order, so the state
-  agrees to a tolerance.
+  state, then a closed-form segment fold of the persisted contributions
+  (``repro_torch.kernels.ops.segment_fold``).  Decisions from a shared
+  state are bitwise those of the JAX engine; the fold uses ``torch.exp``
+  (the card's ``expf``) and sums in another order, so the state agrees to
+  a tolerance.
 
 Both modes route the §5.1 decision + read-modify-write through
 ``repro_torch.kernels.ops.thinning_rmw_keyed`` (the CUDA kernel on the
 card, the plain version on the CPU): it reads the rows at the keys and
 draws the counter-RNG uniforms itself, so the fast step's decision stage is
 one launch, and in exact mode it also writes each chunk's (or round's)
-rows back, so a chunk is one launch.  The steps update the state **in
-place** and return it.  Nothing on the per-chunk or per-block path waits
-for the device: no ``nonzero``, ``.item()``, boolean indexing or
+rows back, so a chunk is one launch.  On the card the fast fold is one
+more kernel (two launches: the block's lanes ranked by row, then one
+warp a row) that reads and writes only the rows the block's valid keys
+name, with O(B) scratch and each key's sums in ascending lane order, so
+that the result depends neither on the row ids nor on the table's size;
+on the CPU it is the plain whole-table fold.  The steps update the state
+**in place** and return it.  Nothing on the per-chunk or per-block path
+waits for the device: no ``nonzero``, ``.item()``, boolean indexing or
 ``unique``.
 """
 from __future__ import annotations
@@ -34,11 +40,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import estimators, intensity
+from repro_torch.core import estimators
 from repro_torch.core.types import (Event, EngineConfig, ProfileState,
                                     StepInfo, init_state)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import cpu_flush_denormals
 
 __all__ = ["init_state", "make_step", "materialize_features"]
 
@@ -156,75 +161,19 @@ def _step_fast(cfg: EngineConfig, state: ProfileState, ev: Event, rng,
                rng_entity=None):
     dev = state.device
     taus = _taus(cfg, dev)
-    num_e = state.num_entities
     key = ev.key.to(torch.int64)
     ent = None if rng_entity is None else rng_entity.to(torch.int64)
-    safe_key = torch.where(ev.valid, key, 0)
 
     # Decision stage: one keyed pass against the batch-start state (rows,
     # uniforms and decisions in one launch); the fold below does the RMW.
     z, p, feats, lam = ops.thinning_rmw_keyed(
         taus, state, key, ev.q, ev.t, ev.valid, rng, ent, **_fused_kw(cfg))
 
-    # --- closed-form segment fold of persisted contributions -------------
-    # Scratch tables have a spare row num_e for the lanes that do not
-    # contribute.  Segment sums use index_put_(accumulate=True): on CUDA
-    # it sorts the indices and sums in a fixed order (no float atomics),
-    # so two runs give identical state; on the CPU it would add with
-    # atomics across threads, so it runs on one thread there.
-    def seg_max(idx, val):
-        out = torch.full((num_e + 1,), -torch.inf, dtype=torch.float32,
-                         device=dev)
-        return out.scatter_reduce_(0, idx, val, "amax")[:num_e]
-
-    def seg_sum(idx, val):
-        out = torch.zeros((num_e + 1,) + val.shape[1:], dtype=torch.float32,
-                          device=dev)
-        with cpu_flush_denormals(dev):      # one thread on the CPU
-            out.index_put_((idx,), val, accumulate=True)
-        return out[:num_e]
-
-    data_idx = torch.where(z, key, num_e)
-    t_star = seg_max(data_idx, ev.t)        # last persisted time per key
-    wrote = torch.isfinite(t_star)
-    t_ref = torch.where(wrote, t_star, 0.0)
-
-    inv_p = torch.where(z, torch.reciprocal(p), 0.0)
-    dt_ev = t_ref[safe_key] - ev.t
-    # v_f: sum_i (1/p_i) exp(-(t* - t_i)/h) + decay(t* - last_t) * v_f
-    v_add = seg_sum(data_idx, inv_p * intensity.decay(dt_ev, cfg.h))
-    v_f_new = torch.where(
-        wrote, v_add + intensity.decay(t_star - state.last_t, cfg.h)
-        * state.v_f, state.v_f)
-
-    # aggregates: same fold per tau/column
-    beta_ev = intensity.decay(dt_ev[:, None], taus)          # [B, T]
-    w = torch.stack([torch.ones_like(ev.q), ev.q, ev.q * ev.q], -1)
-    contrib = inv_p[:, None, None] * beta_ev[:, :, None] * w[:, None, :]
-    agg_new = torch.where(
-        wrote[:, None, None],
-        seg_sum(data_idx, contrib)
-        + estimators.decay_to(state.agg, state.last_t, t_star, taus),
-        state.agg)
-    last_t_new = torch.where(wrote, t_star, state.last_t)
-
-    # full-stream control column (every valid event)
-    ctrl_idx = torch.where(ev.valid, key, num_e)
-    tf_star = seg_max(ctrl_idx, ev.t)
-    saw = torch.isfinite(tf_star)
-    tf_ref = torch.where(saw, tf_star, 0.0)
-    w_full = torch.where(ev.valid, 1.0, 0.0) * intensity.decay(
-        tf_ref[safe_key] - ev.t, cfg.h)
-    v_full_new = torch.where(
-        saw, seg_sum(ctrl_idx, w_full)
-        + intensity.decay(tf_star - state.last_t_full, cfg.h) * state.v_full,
-        state.v_full)
-    last_t_full_new = torch.where(saw, tf_star, state.last_t_full)
-
-    for dst, new in ((state.last_t, last_t_new), (state.v_f, v_f_new),
-                     (state.agg, agg_new), (state.v_full, v_full_new),
-                     (state.last_t_full, last_t_full_new)):
-        dst.copy_(new)
+    # Closed-form segment fold of the persisted contributions, in place,
+    # into the rows the block touches (one kernel on the card: O(B)
+    # scratch, each key's sums in lane order; the whole-table plain
+    # version on the CPU).
+    ops.segment_fold(taus, state, key, ev.q, ev.t, ev.valid, z, p, h=cfg.h)
     info = StepInfo(z=z, p=p, lam_hat=lam, features=feats,
                     writes=z.sum().to(torch.int32))
     return state, info

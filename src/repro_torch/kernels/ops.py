@@ -1,4 +1,4 @@
-"""Public wrappers of the port's three kernels (PyTorch).
+"""Public wrappers of the port's kernels (PyTorch).
 
 The counterparts of ``repro.kernels.ops``: ``thinning_rmw`` (the fused
 decision + update over gathered rows), ``decay_scan`` (the prefill
@@ -7,7 +7,9 @@ recurrence of the RG-LRU and of Mamba-2's chunk states) and
 ``thinning_rmw_keyed``, the same fused pass read from the state at the
 events' keys, with the counter-RNG uniforms drawn in the kernel and, in
 exact mode, the rows written back — the one decision + update call that
-``core/engine.py`` routes both execution modes through.  Dispatch follows the
+``core/engine.py`` routes both execution modes through; and
+``segment_fold``, fast mode's fold of a block's persisted contributions
+into the rows it touches.  Dispatch follows the
 tensors, not a flag: CUDA tensors go to the hand-written kernels
 (``kernels/thinning_rmw.py``, ``decay_scan.py``, ``flash_attention.py``),
 CPU tensors to the plain versions (``kernels/ref.py``).  There is no
@@ -110,6 +112,22 @@ def thinning_rmw_keyed(taus, state, key, q, t, valid, rng, ent=None, *,
         return ref.thinning_rmw_keyed_ref(*args, **kw)
     raise ValueError(f"thinning_rmw_keyed has no implementation for "
                      f"{key.device}")
+
+
+def segment_fold(taus, state, key, q, t, valid, z, p, *, h: float) -> None:
+    """Fold a fast block's persisted contributions into ``state``, in place.
+
+    ``state`` a ``ProfileState``; ``key`` int64 [B]; ``q``/``t`` float32
+    [B]; ``valid`` bool [B]; ``z``/``p`` the decision stage's outputs for
+    the same lanes.  Only the rows of the block's valid keys change; see
+    ``repro_torch.kernels.ref.segment_fold_ref`` for the contract.
+    """
+    args = (taus, state, key, q, t, valid, z, p)
+    if key.device.type == "cuda":
+        return _tr.segment_fold_cuda(*args, h=h)
+    if key.device.type == "cpu":
+        return ref.segment_fold_ref(*args, h=h)
+    raise ValueError(f"segment_fold has no implementation for {key.device}")
 
 
 # ------------------------------------------------- custom ops (torch.library)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three kernels and of the two
+"""Plain PyTorch versions of the port's forward kernels and of the two
 backward kernels.
 
 ``decay_scan_ref`` and ``attention_ref`` transcribe ``repro.kernels.ref``'s
@@ -39,6 +39,11 @@ exact mode, the conflict-free scatter back into the state — composed around
 ``thinning_rmw_ref``.  ``gather_cuda_calls`` counts ``gather_rows`` calls on
 CUDA tensors, so a run can show that its main path left the gather to the
 kernel.
+
+``segment_fold_ref`` is fast mode's fold as the engine ran it before
+``csrc/segment_fold.cu``: whole tables, ``index_put_`` segment sums.  It
+keeps the CPU's numerics (the engine's fast-mode tests against JAX run
+through it) and holds the kernel to a relative tolerance on the card.
 """
 from __future__ import annotations
 
@@ -264,6 +269,84 @@ def thinning_rmw_keyed_ref(taus, state, key, q, t, valid, rng, ent=None, *,
     for dst, val in zip(out, (z, p, feats, lam)):
         dst[slot] = val[active]
     return out
+
+
+def _decay(dt: torch.Tensor, h) -> torch.Tensor:
+    """exp(-dt/h) with dt=inf (a fresh row) mapping to 0
+    (``core.intensity.decay``)."""
+    dt = torch.clamp_min(dt, 0.0)
+    return torch.where(torch.isfinite(dt), torch.exp(-dt / h), 0.0)
+
+
+def segment_fold_ref(taus, state, key, q, t, valid, z, p, *, h: float):
+    """Plain closed-form segment fold of a fast block, in place.
+
+    ``state``: the five state columns (a ``ProfileState``, N rows);
+    ``key`` int64 [B]; ``q``/``t``/``p`` float32 [B]; ``valid``/``z`` bool
+    [B] (the decision stage's ``z`` and ``p``).  Per key with persisted
+    lanes, at their latest time t*: ``v_f <- sum (1/p) e^{-(t*-t_i)/h} +
+    e^{-(t*-last_t)/h} v_f``, the [T, 3] aggregates the same per tau with
+    weights (1, q, q^2), ``last_t <- t*``; per key with valid lanes the
+    control column ``v_full``/``last_t_full`` by the same rule over every
+    valid lane, weight 1.  Other rows keep their bits.
+
+    The fold works on whole tables: scratch tables have a spare row N for
+    the lanes that do not contribute, and the segment sums are
+    ``index_put_(accumulate=True)``, which on the CPU adds with atomics
+    across threads, so it runs on one thread here.
+    """
+    last_t, v_f, agg, v_full, last_t_full = state
+    dev = last_t.device
+    num_e = last_t.shape[0]
+    safe_key = torch.where(valid, key, 0)
+
+    def seg_max(idx, val):
+        out = torch.full((num_e + 1,), -torch.inf, dtype=torch.float32,
+                         device=dev)
+        return out.scatter_reduce_(0, idx, val, "amax")[:num_e]
+
+    def seg_sum(idx, val):
+        out = torch.zeros((num_e + 1,) + val.shape[1:], dtype=torch.float32,
+                          device=dev)
+        with cpu_flush_denormals(dev):      # one thread on the CPU
+            out.index_put_((idx,), val, accumulate=True)
+        return out[:num_e]
+
+    data_idx = torch.where(z, key, num_e)
+    t_star = seg_max(data_idx, t)           # last persisted time per key
+    wrote = torch.isfinite(t_star)
+    t_ref = torch.where(wrote, t_star, 0.0)
+
+    inv_p = torch.where(z, torch.reciprocal(p), 0.0)
+    dt_ev = t_ref[safe_key] - t
+    # v_f: sum_i (1/p_i) exp(-(t* - t_i)/h) + decay(t* - last_t) * v_f
+    v_add = seg_sum(data_idx, inv_p * _decay(dt_ev, h))
+    v_f_new = torch.where(
+        wrote, v_add + _decay(t_star - last_t, h) * v_f, v_f)
+
+    # aggregates: same fold per tau/column
+    beta_ev = _decay(dt_ev[:, None], taus)                   # [B, T]
+    w = torch.stack([torch.ones_like(q), q, q * q], -1)
+    contrib = inv_p[:, None, None] * beta_ev[:, :, None] * w[:, None, :]
+    agg_decayed = agg * _decay((t_star - last_t)[:, None], taus)[..., None]
+    agg_new = torch.where(wrote[:, None, None],
+                          seg_sum(data_idx, contrib) + agg_decayed, agg)
+    last_t_new = torch.where(wrote, t_star, last_t)
+
+    # full-stream control column (every valid event)
+    ctrl_idx = torch.where(valid, key, num_e)
+    tf_star = seg_max(ctrl_idx, t)
+    saw = torch.isfinite(tf_star)
+    tf_ref = torch.where(saw, tf_star, 0.0)
+    w_full = torch.where(valid, 1.0, 0.0) * _decay(tf_ref[safe_key] - t, h)
+    v_full_new = torch.where(
+        saw, seg_sum(ctrl_idx, w_full)
+        + _decay(tf_star - last_t_full, h) * v_full, v_full)
+    last_t_full_new = torch.where(saw, tf_star, last_t_full)
+
+    for dst, new in ((last_t, last_t_new), (v_f, v_f_new), (agg, agg_new),
+                     (v_full, v_full_new), (last_t_full, last_t_full_new)):
+        dst.copy_(new)
 
 
 def decay_scan_ref(a: torch.Tensor, u: torch.Tensor,

@@ -14,9 +14,15 @@ Two entries launch the same kernel template:
   the kernel reads the rows at the keys, draws the uniforms and writes the
   decisions (and, with ``write_back=True``, the updated rows, in place).
 
-``launches`` and ``keyed_launches`` count the launches of each entry; a run
-can reset them and read them back to show that its main path went through
-the kernel.
+The fast step's fold after the decisions is a kernel of its own,
+``csrc/segment_fold.cu`` (``FOLD_KERNEL``, entry ``segment_fold_cuda``):
+it folds the block's persisted contributions into the rows the block
+touches, in place, in two launches (the block's lanes ranked by row, then
+one warp a row).
+
+``launches``, ``keyed_launches`` and ``fold_launches`` count the launches
+of each entry; a run can reset them and read them back to show that its
+main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch.kernels.threefry import as_key
 
 launches = 0            # thinning_rmw_cuda launches since the last reset
 keyed_launches = 0      # thinning_rmw_keyed_cuda launches
+fold_launches = 0       # segment_fold_cuda's kernel launches (2 a call)
 
 
 def _bind(lib) -> None:
@@ -47,6 +54,17 @@ def _bind(lib) -> None:
 KERNEL = CudaKernel("thinning_rmw", ("-fmad=false", "-ftz=true",
                                      "-prec-div=true", "-prec-sqrt=true"),
                     _bind)
+
+
+def _bind_fold(lib) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.segment_fold_launch
+    fn.restype = I
+    fn.argtypes = [P] * 15 + [I] * 2 + [ctypes.c_float, P]
+
+
+FOLD_KERNEL = CudaKernel("segment_fold", ("-fmad=false", "-prec-div=true"),
+                         _bind_fold)
 
 
 def _check(name, x, device, shape, dtype=torch.float32):
@@ -79,9 +97,9 @@ def _ptr(x):
     return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
-def _raise_on(err):
+def _raise_on(err, entry="thinning_rmw"):
     if err != 0:
-        raise RuntimeError(f"thinning_rmw launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def thinning_rmw_cuda(taus, last_t, v_f, agg_flat, q, t, u, valid, v_full,
@@ -191,3 +209,49 @@ def thinning_rmw_keyed_cuda(taus, state, key, q, t, valid, rng, ent=None, *,
         _raise_on(err)
         keyed_launches += 1
     return out
+
+
+def segment_fold_cuda(taus, state, key, q, t, valid, z, p, *, h: float):
+    """Fold a fast block's persisted contributions into ``state`` in place
+    (CUDA tensors; the contract of
+    ``repro_torch.kernels.ref.segment_fold_ref``).
+
+    ``state``: the five state columns (a ``ProfileState``); ``key`` int64
+    [B] (valid keys in [0, N): the kernel does not check them); ``q``,
+    ``t``, ``p`` float32 [B]; ``valid``, ``z`` bool [B].  Scratch is O(B):
+    the lanes in (row, lane) order, their rows and their rows' lane
+    counts.  Two launches, none for an empty block.
+    """
+    global fold_launches
+    device = key.device
+    last_t, v_f, agg, v_full, last_t_full = state
+    N, T, B = last_t.shape[0], taus.shape[0], key.shape[0]
+    if device.type != "cuda":
+        raise ValueError(f"segment_fold_cuda takes CUDA tensors, got "
+                         f"{device}")
+    if N >= 2 ** 31:
+        raise ValueError(f"segment_fold_cuda: {N} rows; rows must fit in "
+                         f"31 bits")
+    checks = [("taus", taus, (T,), torch.float32),
+              ("state.agg", agg, (N, T, 3), torch.float32),
+              ("key", key, (B,), torch.int64),
+              ("q", q, (B,), torch.float32), ("t", t, (B,), torch.float32),
+              ("p", p, (B,), torch.float32),
+              ("valid", valid, (B,), torch.bool), ("z", z, (B,), torch.bool)]
+    checks += [(f"state.{n}", x, (N,), torch.float32) for n, x in (
+        ("last_t", last_t), ("v_f", v_f), ("v_full", v_full),
+        ("last_t_full", last_t_full))]
+    for name, x, shape, dtype in checks:
+        _check(name, x, device, shape, dtype)
+    if not B:
+        return
+    order = torch.empty((3, B), dtype=torch.int32, device=device)
+    fn = FOLD_KERNEL.lib().segment_fold_launch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(_ptr(x) for x in (
+            taus, last_t, v_f, agg, v_full, last_t_full, key, q, t, valid, z,
+            p, order[0], order[1], order[2])),
+            B, T, float(np.float32(h)), ctypes.c_void_p(stream))
+    _raise_on(err, "segment_fold")
+    fold_launches += 2

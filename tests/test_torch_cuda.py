@@ -8,7 +8,9 @@ one; they import no JAX, so they run on a machine that has only PyTorch:
 The kernel is held bitwise to its plain PyTorch version on the CPU, which
 ``test_torch_kernels.py`` (rows in) and ``test_torch_keyed.py`` (keys in)
 hold bitwise to the JAX reference; the engine on the card is held bitwise
-to the engine on the CPU in exact mode.
+to the engine on the CPU in exact mode.  Fast mode's fold kernel is held to
+its plain version (``test_torch_engine.py`` holds that one bitwise to the
+fold it replaced) to a relative tolerance, and bitwise to itself.
 """
 import numpy as np
 import pytest
@@ -90,6 +92,75 @@ def keyed_lanes(rng, L):
     return rng.permutation(lanes).astype(np.int64)
 
 
+# The fast fold's cases: ``fold_inputs(case, seed)``.  "zipf-800k" is the
+# iiot cell's block: 4096 lanes, Zipf keys over 800,000 rows, about 90 % of
+# the lanes not persisted.
+FOLD_CASES = ["mixed", "all-padding", "one-key", "control-only",
+              "fresh-rows", "equal-times"]
+
+
+def fold_inputs(case, seed, N=5000, B=700, T=6):
+    """A state table and one block's lanes and decisions for the fold, as
+    numpy arrays: ``(taus, (last_t, v_f, agg, v_full, last_t_full), (key,
+    q, t, valid, z, p))``.  Warm rows have times before the block's;
+    fresh rows ``-inf``.  Keys repeat; ``z`` lies inside ``valid``."""
+    rng = np.random.default_rng([FOLD_CASES.index(case)
+                                 if case in FOLD_CASES else 99, seed])
+    if case == "zipf-800k":
+        N, B = 800_000, 4096
+    f32 = lambda x: np.asarray(x, np.float32)
+    taus = f32(np.geomspace(60, 86400, T))
+    fresh = rng.random(N) < 0.3
+    last_t = f32(np.where(fresh, -np.inf, rng.uniform(0, 1e4, N)))
+    v_f = f32(np.where(fresh, 0, rng.uniform(0, 50, N)))
+    agg = f32(rng.uniform(0, 10, (N, T, 3))) * (~fresh[:, None, None])
+    fresh_full = fresh & (rng.random(N) < 0.5)
+    last_t_full = f32(np.where(fresh_full, -np.inf,
+                               rng.uniform(0, 1.2e4, N)))
+    v_full = f32(np.where(fresh_full, 0, rng.uniform(0, 80, N)))
+    if case == "zipf-800k":
+        w = 1.0 / np.arange(1, N + 1) ** 1.1
+        key = rng.permutation(N)[rng.choice(N, B, p=w / w.sum())]
+    else:
+        key = rng.integers(0, N, B)
+        key[1::7] = key[0]
+    valid = rng.random(B) < 0.85
+    z = valid & (rng.random(B) < (0.1 if case == "zipf-800k" else 0.4))
+    t = f32(rng.uniform(1e4, 2e4, B))
+    if case == "all-padding":
+        valid[:] = z[:] = False
+    elif case == "one-key":
+        key[:] = key[0]
+        valid[:] = True
+    elif case == "control-only":
+        z[key == key[0]] = False
+        valid[0] = True
+    elif case == "fresh-rows":
+        for col in (last_t, last_t_full):
+            col[key] = -np.inf
+        v_f[key] = v_full[key] = 0
+        agg[key] = 0
+    elif case == "equal-times":
+        t = f32(1e4 + 60.0 * (key % 5))      # a key's lanes share one time
+    q = f32(rng.lognormal(3, 1, B))
+    p = f32(rng.uniform(0.05, 1.0, B))
+    return (taus, (last_t, v_f, agg, v_full, last_t_full),
+            (key.astype(np.int64), q, t, valid, z, p))
+
+
+def _fold_on(device, case, seed):
+    """The fold on ``device`` over one case: the state after it, and the
+    rows that no valid lane names (on the CPU)."""
+    taus, table, (key, q, t, valid, z, p) = fold_inputs(case, seed)
+    dev = lambda x: torch.tensor(x, device=device)
+    state = ProfileState(*(dev(x) for x in table))
+    ops.segment_fold(dev(taus), state, dev(key), dev(q), dev(t), dev(valid),
+                     dev(z), dev(p), h=600.0)
+    untouched = np.ones(table[0].shape[0], bool)
+    untouched[key[valid]] = False
+    return [x.cpu() for x in state], untouched, table
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -145,13 +216,16 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
     run = lambda dev: run_stream(cfg, init_state(n_keys, 3, device=dev),
                                  keys, qs, ts, batch=batch, mode=mode,
                                  rng=prng_key(7))
-    launches = trmw.keyed_launches
+    launches, folds = trmw.keyed_launches, trmw.fold_launches
     (gs, gi), (gs2, _), (cs, ci) = (run(cuda_device), run(cuda_device),
                                     run("cpu"))
     n_blocks = -(-n // batch)
     # one keyed launch per fast block, per exact chunk (1 + rounds a block)
     per_block = 1 if mode == "fast" else 1 + rounds
     assert trmw.keyed_launches - launches == 2 * n_blocks * per_block
+    # the fold's two launches (rank, fold) per fast block; none in exact
+    fold_per_block = 2 if mode == "fast" else 0
+    assert trmw.fold_launches - folds == 2 * n_blocks * fold_per_block
     agree = n if mode == "exact" else batch
     for name in ("z", "p", "lam_hat"):
         assert _bitwise(getattr(gi, name)[:agree],
@@ -223,6 +297,26 @@ def test_keyed_kernel_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="key"):
         trmw.thinning_rmw_keyed_cuda(taus, state, key, f, f, valid, (0, 0),
                                      h=600.0, budget=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FOLD_CASES + ["zipf-800k"])
+def test_segment_fold_kernel_vs_plain_cpu(cuda_device, case):
+    """The fold kernel against its plain version on the CPU: the state to
+    rtol 1e-5 (expf and the sums' order differ), rows no valid lane names
+    bitwise as they were, two launches bitwise equal."""
+    folds = trmw.fold_launches
+    got, untouched, before = _fold_on(cuda_device, case, 0)
+    again, _, _ = _fold_on(cuda_device, case, 0)
+    torch.cuda.synchronize()
+    assert trmw.fold_launches == folds + 4
+    want, _, _ = _fold_on("cpu", case, 0)
+    for g, g2, w, b, name in zip(got, again, want, before,
+                                 ProfileState._fields):
+        assert _bitwise(g, g2), name
+        assert _bitwise(g[untouched], torch.from_numpy(b[untouched])), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=0,
+                                   err_msg=name)
 
 
 def _zipf_stream(n, n_keys, seed=0):

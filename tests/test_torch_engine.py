@@ -4,7 +4,9 @@ Exact mode is held bitwise to JAX (z, p, lam_hat and the final state; the
 features to 1 ulp, the reference's own bound across its two schedules).
 Fast mode takes bitwise-equal decisions from a shared state; its segment
 fold decays with ``torch.exp`` and sums in another order, so its state is
-held to a relative tolerance.
+held to a relative tolerance.  The fold's plain version (the CPU's
+``ops.segment_fold``) is held bitwise to the whole-table fold it was moved
+from, on its edge cases.
 """
 import os
 import subprocess
@@ -22,6 +24,7 @@ import repro.core as jcore                                   # noqa: E402
 from repro_torch.core import (EngineConfig, Event, init_state,  # noqa: E402
                               make_step, materialize_features, run_stream,
                               state_from_numpy, state_to_numpy)
+from test_torch_cuda import FOLD_CASES, fold_inputs           # noqa: E402
 
 POLICIES = ["pp", "pp_vr", "full", "fixed", "unfiltered"]
 N_KEYS, BATCH = 32, 128
@@ -125,6 +128,82 @@ def test_fast_step_from_shared_state(policy):
     for f in js._fields:
         np.testing.assert_allclose(_np(getattr(st, f)), np.asarray(
             getattr(js, f)), rtol=1e-6, atol=0, err_msg=f)
+
+
+def _whole_table_fold(taus, state, key, q, t, valid, z, p, h):
+    """The fast step's fold as ``core/engine.py`` ran it before it became
+    ``ops.segment_fold``: whole-table scratch and ``index_put_`` sums.
+    Returns the new state tables."""
+    from repro_torch.core import estimators, intensity
+    from repro_torch.kernels.ref import cpu_flush_denormals
+
+    dev = state.last_t.device
+    num_e = state.num_entities
+    safe_key = torch.where(valid, key, 0)
+
+    def seg_max(idx, val):
+        out = torch.full((num_e + 1,), -torch.inf, dtype=torch.float32,
+                         device=dev)
+        return out.scatter_reduce_(0, idx, val, "amax")[:num_e]
+
+    def seg_sum(idx, val):
+        out = torch.zeros((num_e + 1,) + val.shape[1:], dtype=torch.float32,
+                          device=dev)
+        with cpu_flush_denormals(dev):
+            out.index_put_((idx,), val, accumulate=True)
+        return out[:num_e]
+
+    data_idx = torch.where(z, key, num_e)
+    t_star = seg_max(data_idx, t)
+    wrote = torch.isfinite(t_star)
+    t_ref = torch.where(wrote, t_star, 0.0)
+    inv_p = torch.where(z, torch.reciprocal(p), 0.0)
+    dt_ev = t_ref[safe_key] - t
+    v_add = seg_sum(data_idx, inv_p * intensity.decay(dt_ev, h))
+    v_f_new = torch.where(
+        wrote, v_add + intensity.decay(t_star - state.last_t, h)
+        * state.v_f, state.v_f)
+    beta_ev = intensity.decay(dt_ev[:, None], taus)
+    w = torch.stack([torch.ones_like(q), q, q * q], -1)
+    contrib = inv_p[:, None, None] * beta_ev[:, :, None] * w[:, None, :]
+    agg_new = torch.where(
+        wrote[:, None, None],
+        seg_sum(data_idx, contrib)
+        + estimators.decay_to(state.agg, state.last_t, t_star, taus),
+        state.agg)
+    last_t_new = torch.where(wrote, t_star, state.last_t)
+    ctrl_idx = torch.where(valid, key, num_e)
+    tf_star = seg_max(ctrl_idx, t)
+    saw = torch.isfinite(tf_star)
+    tf_ref = torch.where(saw, tf_star, 0.0)
+    w_full = torch.where(valid, 1.0, 0.0) * intensity.decay(
+        tf_ref[safe_key] - t, h)
+    v_full_new = torch.where(
+        saw, seg_sum(ctrl_idx, w_full)
+        + intensity.decay(tf_star - state.last_t_full, h) * state.v_full,
+        state.v_full)
+    last_t_full_new = torch.where(saw, tf_star, state.last_t_full)
+    return (last_t_new, v_f_new, agg_new, v_full_new, last_t_full_new)
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_plain_fold_bitwise_vs_whole_table_fold(case):
+    """``ref.segment_fold_ref`` (the CPU's ``ops.segment_fold``) is the
+    fold the fast step ran before, bit for bit, on every edge case; rows
+    that no valid lane names keep their bits."""
+    from repro_torch.core import ProfileState
+    from repro_torch.kernels import ref
+
+    taus, table, (key, q, t, valid, z, p) = fold_inputs(case, 1)
+    tensors = [torch.from_numpy(x) for x in (taus, key, q, t, valid, z, p)]
+    state = ProfileState(*(torch.from_numpy(x.copy()) for x in table))
+    want = _whole_table_fold(tensors[0], state, *tensors[1:], h=600.0)
+    ref.segment_fold_ref(*tensors[:1], state, *tensors[1:], h=600.0)
+    untouched = np.ones(table[0].shape[0], bool)
+    untouched[key[valid]] = False
+    for got, w, before, name in zip(state, want, table, state._fields):
+        _bitwise(_np(got), _np(w), name)
+        _bitwise(_np(got)[untouched], before[untouched], name)
 
 
 @pytest.mark.parametrize("policy", POLICIES)
